@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) + their plain versions.
+
+Modules:
+  ops.py    — dispatch by device (plain version on the CPU, kernel on
+              CUDA) and the per-kernel launch counters
+  ref.py    — plain PyTorch versions, the ground truth on both devices
+  potrf.py  — potrf_leaf, tri_inv_leaf (csrc/potrf.cu, csrc/tri_inv.cu)
+  qgemm.py  — mixed-precision GEMM (csrc/qgemm.cu)
+  panel.py  — fused panel update of the blocked engine (csrc/panel.cu)
+  _build.py — nvcc build at first use, ctypes loading
+
+Importing this package builds nothing: the kernels are compiled at their
+first launch, on the machine that has the card.
+"""
+from repro_torch.kernels import ops, ref  # noqa: F401

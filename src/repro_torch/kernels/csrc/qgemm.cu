@@ -1,0 +1,70 @@
+// qgemm: out = scale * (A @ B) + beta * C, wide accumulation.
+//
+// Replaces the Pallas kernel repro/kernels/qgemm.py:qgemm. On the solve
+// path (core/blocked.py:blocked_trsm_left) it runs (b, b) @ (b, k) and
+// (m, b) @ (b, k) products with k the number of right-hand sides, so it is
+// bound by the bytes of the factor it streams (each element of L is read
+// once per sweep), not by arithmetic: at k = 16 it does 32 flops per f32
+// element read. The design is the simplest one that reads each operand
+// tile once per CTA: a 64 x 64 output block per CTA, 16-deep k-steps
+// through shared memory, a 4 x 4 register micro-tile per thread (see
+// common.cuh). f32 data stays IEEE f32 on the CUDA cores: no tensor cores,
+// which would round f32 operands to TF32.
+//
+// Operand types and accumulators, as repro_torch/kernels/ref.py:qgemm_ref:
+//   f32, f16, bf16 -> f32 accumulation, f32 out
+//   f64            -> f64 accumulation, f64 out
+//   int8           -> exact s32 accumulation, f32 epilogue
+// The epilogue computes (Tout)acc * scale, then adds beta * C. `out` may be
+// `C` itself (each element is read before it is written, by one thread).
+#include "common.cuh"
+
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(G_THREADS)
+qgemm_kernel(const Tin* __restrict__ A, ll sam, ll sak, const Tin* __restrict__ B,
+             ll sbk, ll sbn, const Tout* C, ll ldc, Tout* O, ll ldo, int M, int N,
+             int K, Tout scale, Tout beta, int has_c) {
+  typedef typename AccOf<Tin>::type Tacc;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+  Tacc acc[4][4];
+  gemm_block<Tin, Tacc>(acc, A, sam, sak, B, sbk, sbn, M, N, K, m0, n0);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gm = m0 + ty + 16 * r;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int gn = n0 + tx + 16 * c;
+      if (gn >= N) continue;
+      Tout v = (Tout)acc[r][c] * scale;
+      if (has_c) v = v + beta * C[gm * ldc + gn];
+      O[gm * ldo + gn] = v;
+    }
+  }
+}
+
+template <typename Tin, typename Tout>
+static int launch(const void* A, ll sam, ll sak, const void* B, ll sbk, ll sbn,
+                  const void* C, ll ldc, void* O, ll ldo, int M, int N, int K,
+                  double scale, double beta, int has_c, void* stream) {
+  dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+  qgemm_kernel<Tin, Tout><<<grid, G_THREADS, 0, (cudaStream_t)stream>>>(
+      (const Tin*)A, sam, sak, (const Tin*)B, sbk, sbn, (const Tout*)C, ldc, (Tout*)O,
+      ldo, M, N, K, (Tout)scale, (Tout)beta, has_c);
+  RETURN_LAUNCH_STATUS();
+}
+
+#define QGEMM_ENTRY(NAME, TIN, TOUT)                                                  \
+  extern "C" int NAME(const void* A, ll sam, ll sak, const void* B, ll sbk, ll sbn,   \
+                      const void* C, ll ldc, void* O, ll ldo, int M, int N, int K,    \
+                      double scale, double beta, int has_c, void* stream) {           \
+    return launch<TIN, TOUT>(A, sam, sak, B, sbk, sbn, C, ldc, O, ldo, M, N, K,       \
+                             scale, beta, has_c, stream);                             \
+  }
+
+QGEMM_ENTRY(qgemm_f32, float, float)
+QGEMM_ENTRY(qgemm_f64, double, double)
+QGEMM_ENTRY(qgemm_f16, __half, float)
+QGEMM_ENTRY(qgemm_bf16, __nv_bfloat16, float)
+QGEMM_ENTRY(qgemm_s8, int8_t, float)
