@@ -9,23 +9,37 @@ line; a failing check raises, and the script exits non-zero with no
 result line. Phases:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
-2. ``kernel``: each of the four kernels against its plain PyTorch version
+2. ``kernel``: each of the five kernels against its plain PyTorch version
    on the card, for every operand type and rounding variant, at the
    shapes of tests/test_kernels.py and at the main path's shapes
    (leaf b = 256, the first diagonal tile of the n = 16384 matrix, panel
-   heights m = 256 .. n - 256); times of the kernel,
-   the plain version and the one PyTorch call computing the same function
-   (where there is one), beside the card's least time for that work.
+   heights m = 256 .. n - 256, the residual at n = 16384 with 16
+   columns); times of the kernel, the plain version and the one PyTorch
+   call computing the same function (where there is one), beside the
+   card's least time for that work. ``residual_fused`` is also checked
+   for column independence, bitwise.
 3. ``path``: the port's main path, ``cholesky_solve`` with 16 right-hand
    sides and with one vector, at n = 16384 on the paper's §IV-A matrix,
    for the ladders pure_f32, bf16_f32, f16x3_f32 and int8_f32; factor
    and solve times, peak memory, the residual ||b - A x|| / ||b|| in f64
    and each kernel's launch count, which must match the schedule. Then
    bf16_f32 at n = 32768 and f32x3_f64 at n = 4096.
-4. ``breakdown``: device time by kernel inside one factor and one
+4. ``refine``: ``refine_solve`` with 16 right-hand sides at n = 16384,
+   at most 10 sweeps: classic IR with f64 residuals to 1e-10 for the four
+   ladders (every column must converge, >= 10 digits in f64), GMRES-IR
+   once and IR with the default f32 residual once (bf16_f32; never worse
+   than the unrefined solve); sweeps, digits before and after, wall and
+   sweep ms, and launch counts checked against the sweep schedule.
+5. ``serve``: ``SolverEngine("bf16_f32", residual_dtype="f64")`` at
+   n = 16384 answers 48 single-column requests (targets 6, 8, 10, 12
+   digits) through a continuous ``BatchScheduler`` (16 slots) and through
+   a windowed drain; requests/s of each with the factor excluded, sweeps,
+   convergence, cache hits, the card's busy share, and the two modes
+   compared request for request.
+6. ``breakdown``: device time by kernel inside one factor and one
    16-column solve of f16x3_f32 at n = 16384 (torch.profiler), and the
    card's busy share of the wall time.
-5. ``cpu_agreement``: each ladder's factor on the card against the same
+7. ``cpu_agreement``: each ladder's factor on the card against the same
    port run on the CPU at n = 2048.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -56,7 +70,11 @@ KERNELS = {
               "src/repro/kernels/qgemm.py:83"),
     "panel_update": ("src/repro_torch/kernels/csrc/panel.cu",
                      "src/repro/kernels/panel.py:129"),
+    "residual_fused": ("src/repro_torch/kernels/csrc/residual.cu",
+                       "src/repro/kernels/residual.py:58"),
 }
+#: the kernels each driven path must launch
+PATH_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
 #: factor-agreement tolerance by the ladder's coarsest level
 #: (tests/test_blocked.py:_TOL)
 TOL = {"f16": 5e-3, "bf16": 4e-2, "int8": 4e-2, "f32": 5e-6, "f64": 1e-12}
@@ -407,6 +425,91 @@ def kernel_panel(rates, gen, n):
         "ladder": "f16x3_f32", "panel": 0}
 
 
+def kernel_residual(rates, gen, n):
+    """residual_fused against residual_ref: f32 and f64, vector and
+    k = 1, 3, 16, 32 columns, ragged n = 129, 300 and the main path's
+    n = 16384; then column independence, bitwise."""
+    from repro_torch.kernels import ref, residual
+    checks = []
+    dtypes = {"f32": torch.float32, "f64": torch.float64}
+    # n-term sums of N(0, 1) products in another order: f32 at the
+    # reference suite's tolerance (tests/test_kernels.py), f64 at 1e-12
+    # times sqrt(n)
+    tols = {"f32": lambda m: (2e-4, 2e-3),
+            "f64": lambda m: (0.0, 1e-12 * math.sqrt(m))}
+    for m in (129, 300, n):
+        for tn, dt in dtypes.items():
+            a = torch.randn((m, m), generator=gen, device="cuda", dtype=dt)
+            for k in (None, 1, 3, 16, 32):
+                shape = (m,) if k is None else (m, k)
+                x = torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+                b = torch.randn(shape, generator=gen, device="cuda", dtype=dt)
+                rtol, atol = tols[tn](m)
+                err = check_close(f"residual {tn} n={m} k={k}",
+                                  residual.residual_fused(a, x, b),
+                                  ref.residual_ref(a, x, b), rtol, atol)
+                checks.append({"n": m, "k": k or "vector", "dtype": tn,
+                               "max_abs_err": err,
+                               "tol": f"rtol {rtol:g} atol {atol:g}"})
+            del a
+    # column j of a k = 32 launch == the same column in a k = 16 launch
+    # with other neighbours, in a k = 2 launch and alone; A's ragged
+    # leading dimension (scalar loads) == an aligned one (16-byte loads)
+    for tn, dt in dtypes.items():
+        m = 300
+        big = torch.randn((304, 304), generator=gen, device="cuda", dtype=dt)
+        a_al, a_rg = big[:m, :m], big[:m, :m].contiguous()
+        x = torch.randn((m, 32), generator=gen, device="cuda", dtype=dt)
+        b = torch.randn((m, 32), generator=gen, device="cuda", dtype=dt)
+        full = residual.residual_fused(a_al, x, b)
+        other = torch.randn((m, 16), generator=gen, device="cuda", dtype=dt)
+        x16, b16 = other.clone(), other.clone()
+        same = torch.equal(residual.residual_fused(a_rg, x, b), full)
+        for j in range(32):
+            x16[:, 11], b16[:, 11] = x[:, j], b[:, j]
+            pair = [j, (j + 7) % 32]
+            same &= torch.equal(
+                residual.residual_fused(a_al, x16, b16)[:, 11], full[:, j])
+            same &= torch.equal(residual.residual_fused(
+                a_al, x[:, pair], b[:, pair])[:, 0], full[:, j])
+            same &= torch.equal(residual.residual_fused(
+                a_al, x[:, j], b[:, j]), full[:, j])
+        if not same:
+            raise AssertionError(f"residual {tn}: a column depends on its "
+                                 "neighbours or on k")
+        checks.append({"case": "column independence: k=32 vs k=16, k=2, "
+                       "vector; aligned vs ragged lda", "dtype": tn,
+                       "n": m, "bitwise": True})
+    # main path: n = 16384 with the 16-column slot block, f64 residuals
+    # (the serve and refine phases) and the f32 default
+    k = 16
+    timing = {}
+    for tn in ("f64", "f32"):
+        dt = dtypes[tn]
+        a = torch.randn((n, n), generator=gen, device="cuda", dtype=dt) / 128
+        x = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
+        b = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
+        out = torch.empty_like(b)
+        rtol, atol = tols[tn](n)
+        err = check_close(f"residual main {tn}",
+                          residual.residual_fused(a, x, b),
+                          ref.residual_ref(a, x, b), rtol, atol)
+        esz = a.element_size()
+        bound, by = bound_ms(2.0 * n * n * k, esz * (n * n + 3 * n * k), tn,
+                             rates)
+        timing[tn] = {
+            "max_abs_err": err, "tol": f"rtol {rtol:g} atol {atol:g}",
+            "ms": cuda_ms(lambda: residual.residual_fused(a, x, b, out=out)),
+            "plain_ms": cuda_ms(lambda: ref.residual_ref(a, x, b), reps=5),
+            "library_ms": cuda_ms(lambda: torch.addmm(b, a, x, beta=1.0,
+                                                      alpha=-1.0, out=out)),
+            "bound_ms": bound, "bound_by": by, "shape": [n, n, k],
+            "dtype": tn}
+        del a
+    torch.cuda.empty_cache()
+    return checks, {**timing["f64"], "f32": timing["f32"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -435,7 +538,8 @@ def path_run(name, n, seed):
     b1 = torch.randn((n,), generator=g, device="cuda", dtype=high)
     T = n // cfg.leaf
     schedule = {"potrf_leaf": T, "tri_inv_leaf": 2 * T - 1,
-                "panel_update": T - 1, "qgemm": 2 * (2 * T - 1)}
+                "panel_update": T - 1, "qgemm": 2 * (2 * T - 1),
+                "residual_fused": 0}
     line = {"phase": "path", "ladder": name, "n": n, "leaf": cfg.leaf,
             "dtype": str(high).replace("torch.", "")}
     counts = {}
@@ -489,18 +593,220 @@ def path_run(name, n, seed):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 4: refinement
+# ---------------------------------------------------------------------------
+def refine_run(name, n, seed, *, method="ir", residual_dtype="f64"):
+    """refine_solve with 16 right-hand sides against a cached factor and
+    its diagonal inverses, at most 10 sweeps to 1e-10; the launches of
+    the call are checked against the sweep schedule: per loop iteration
+    one residual and one correction solve (254 qgemm at T = 64), GMRES-IR
+    adding gmres_restart solves per restart."""
+    import repro_torch as rt
+    from repro_torch.core import scaled_solve
+    from repro_torch.kernels import ops
+    cfg = rt.PAPER_CONFIGS[name]
+    a = paper_matrix(n, seed, cfg.high_dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b = torch.randn((n, 16), generator=g, device="cuda", dtype=cfg.high_dtype)
+    lp = rt.cholesky_padded(a, cfg)
+    linvs = rt.diag_tri_inv(lp, cfg)
+    x0 = rt.solve_factored(lp, b, cfg, linvs=linvs)
+    rcfg = rt.RefineConfig(max_sweeps=10, tol=1e-10, method=method,
+                           residual_dtype=residual_dtype)
+    before = dict(ops.LAUNCHES)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    res = rt.refine_solve(a, b, cfg, refine=rcfg, l=lp, linvs=linvs)
+    stop.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+    sweeps = res.iterations.cpu().tolist()
+    loops = max(sweeps)
+    T = n // cfg.leaf
+    solves = 1 + loops * (rcfg.gmres_restart + 1 if method == "gmres" else 1)
+    schedule = {"potrf_leaf": 0, "tri_inv_leaf": 0, "panel_update": 0,
+                "qgemm": 2 * (2 * T - 1) * solves,
+                "residual_fused": loops + 1}
+    if got != schedule:
+        raise AssertionError(f"refine {name} {method}: launches {got} != "
+                             f"schedule {schedule}")
+    if not bool(torch.isfinite(res.x).all()) or res.x.shape != b.shape:
+        raise AssertionError(f"refine {name} {method}: bad result")
+    before_d = [-math.log10(residual(a, x0[:, j], b[:, j])) for j in range(16)]
+    after_d = [-math.log10(max(residual(a, res.x[:, j], b[:, j]), 1e-300))
+               for j in range(16)]
+    converged = res.converged.cpu().tolist()
+    # one sweep as the loop runs it: the scaled correction solve, the
+    # update and the fused residual, on this run's (n, 16) block
+    rdt = rcfg.rdtype()
+    a_r, b_r, x_r = a.to(rdt), b.to(rdt), res.x
+
+    def base(r):
+        return rt.solve_factored(lp, r.to(lp.dtype), cfg,
+                                 linvs=linvs).to(rdt)
+
+    correct = scaled_solve(base)
+    counted = dict(ops.LAUNCHES)          # timing launches are not the path's
+    r = ops.residual(a_r, x_r, b_r)
+    sweep_ms = cuda_ms(lambda: ops.residual(a_r, x_r + correct(r), b_r),
+                       reps=5, warmup=1)
+    ops.LAUNCHES.update(counted)
+    line = {"phase": "refine", "ladder": name, "n": n, "k": 16,
+            "method": method, "residual_dtype": residual_dtype,
+            "tol": rcfg.tol, "max_sweeps": rcfg.max_sweeps,
+            "sweeps_per_column": sweeps, "converged": converged,
+            "digits_before_min": min(before_d),
+            "digits_after_min": min(after_d),
+            "digits_after_max": max(after_d),
+            "refine_wall_ms": wall_ms,
+            "refine_device_ms": start.elapsed_time(stop),
+            "sweep_ms": sweep_ms, "launches": got, "schedule": schedule}
+    if residual_dtype == "f64":
+        if not all(converged) or min(after_d) < 10:
+            raise AssertionError(f"refine {name} {method}: not every "
+                                 f"column reached 1e-10: {line}")
+    elif any(aft < bef for aft, bef in zip(after_d, before_d)):
+        raise AssertionError(f"refine {name}: f32-residual refinement made "
+                             f"a column worse: {line}")
+    del a, lp, linvs, a_r
+    torch.cuda.empty_cache()
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 5: solve serving
+# ---------------------------------------------------------------------------
 #: kernel-name fragments of the profiler's device events, by port kernel
 _SPANS = (("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("qgemm_kernel", "qgemm"), ("round_rows", "panel_update"),
           ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
-          ("commit", "panel_update"))
+          ("commit", "panel_update"), ("residual_kernel", "residual_fused"))
+
+
+def _profiled(fn):
+    """fn() under torch.profiler: wall ms, device ms by port kernel (the
+    rest as torch ops) and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for frag, k in _SPANS if frag in ev.key),
+                   "other (torch ops)")
+        by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(by.values())
+    return {"wall_ms": wall_ms, "device_ms_by_kernel": by,
+            "device_busy_share": busy / wall_ms if by else None}
+
+
+def serve_phase(n, seed, requests=48, slots=16):
+    """48 single-column requests against one cached factor, through the
+    continuous scheduler and through a windowed drain; the two compared
+    request for request."""
+    from repro_torch.serve import (BatchScheduler, InMemoryMetrics,
+                                   SolveOptions, SolverEngine,
+                                   matrix_fingerprint)
+    a = paper_matrix(n, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    bs = [torch.randn((n,), generator=g, device="cuda")
+          for _ in range(requests)]
+    targets = [(6.0, 8.0, 10.0, 12.0)[i % 4] for i in range(requests)]
+    metrics = InMemoryMetrics()
+    eng = SolverEngine("bf16_f32", residual_dtype="f64", metrics=metrics)
+    fp = matrix_fingerprint(a)
+    t0 = time.perf_counter()
+    eng.factor(a, "paper", fingerprint=fp)      # once, outside the timing
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    opts = [SolveOptions(target_digits=t, cache_key="paper", fingerprint=fp)
+            for t in targets]
+
+    def continuous():
+        sch = BatchScheduler(eng, max_batch=slots, continuous=True)
+        sch.start()
+        futs = [sch.submit_async(a, b, o) for b, o in zip(bs, opts)]
+        out = [f.result(timeout=600) for f in futs]
+        sch.stop()
+        return out
+
+    def windowed():
+        sch = BatchScheduler(eng, max_batch=slots)
+        ids = [sch.submit(a, b, o) for b, o in zip(bs, opts)]
+        res = sch.drain()
+        return [res[i] for i in ids]
+
+    line = {"phase": "serve", "ladder": "bf16_f32", "n": n,
+            "residual_dtype": "f64", "requests": requests, "slots": slots,
+            "targets": sorted(set(targets)), "factor_s_excluded": factor_s}
+    outs = {}
+    for mode, fn in (("continuous", continuous), ("window", windowed)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs[mode] = out
+        infos = [info for _, info in out]
+        sweeps = [info.sweeps for info in infos]
+        digits = [-math.log10(max(residual(a, x, b), 1e-300))
+                  for (x, _), b in zip(out, bs)]
+        # the loop's f64 residual and this one differ by summation order,
+        # ~1e-14 of ||b||: 0.05 digit at a 12-digit target is far above it
+        short = [i for i, (d, t, info) in enumerate(zip(digits, targets,
+                                                        infos))
+                 if not info.converged or d < t - 0.05]
+        if len(out) != requests or short:
+            raise AssertionError(f"serve {mode}: requests {short} missed "
+                                 "their targets")
+        line[mode] = {"wall_s": wall, "req_per_s": requests / wall,
+                      "sweeps_mean": sum(sweeps) / len(sweeps),
+                      "sweeps_max": max(sweeps),
+                      "converged_share": sum(i.converged for i in infos)
+                      / len(infos),
+                      "digits_min_by_target": {
+                          str(t): min(d for d, tt in zip(digits, targets)
+                                      if tt == t)
+                          for t in sorted(set(targets))}}
+    diffs, max_dx = [], 0.0
+    for i, ((xc, ic), (xw, iw)) in enumerate(zip(outs["continuous"],
+                                                 outs["window"])):
+        if (ic.sweeps != iw.sweeps or ic.converged != iw.converged
+                or len(ic.history[0]) != len(iw.history[0])):
+            diffs.append(i)
+        max_dx = max(max_dx, float((xc - xw).abs().max()))
+    line["continuous_vs_window"] = {
+        "requests_differing_in_sweeps_converged_or_history": diffs,
+        "x_bitwise_equal": max_dx == 0.0, "max_abs_dx": max_dx,
+        "history_equal": all(oc[1].history == ow[1].history for oc, ow in
+                             zip(outs["continuous"], outs["window"]))}
+    if diffs:
+        raise AssertionError(f"serve: continuous and window differ on "
+                             f"requests {diffs}")
+    counters = metrics.snapshot()["counters"]
+    line["factor_cache_hits"] = counters.get("engine.factor_cache_hit", 0)
+    line["factor_cache_misses"] = counters.get("engine.factor_cache_miss", 0)
+    for mode, fn in (("continuous", continuous), ("window", windowed)):
+        line[mode]["profiled"] = _profiled(fn)
+    del a, eng
+    torch.cuda.empty_cache()
+    return line
 
 
 def breakdown(name, n, seed):
     """Device time by kernel inside one factor and one 16-column solve
     (torch.profiler), and the device's busy share of the wall time."""
     import repro_torch as rt
-    from torch.profiler import ProfilerActivity, profile
     cfg = rt.PAPER_CONFIGS[name]
     a = paper_matrix(n, seed)
     b16 = torch.ones((n, 16), device="cuda")
@@ -508,23 +814,7 @@ def breakdown(name, n, seed):
     line = {"phase": "breakdown", "ladder": name, "n": n}
     for label, fn in (("factor", lambda: rt.cholesky_padded(a, cfg)),
                       ("solve_k16", lambda: rt.solve_factored(lp, b16, cfg))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            key = next((k for frag, k in _SPANS if frag in ev.key),
-                       "other (torch ops)")
-            by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
-        busy = sum(by.values())
-        line[label] = {"wall_ms": wall_ms, "device_ms_by_kernel": by,
-                       "device_busy_share": busy / wall_ms if by else None}
+        line[label] = _profiled(fn)
     return line
 
 
@@ -569,7 +859,9 @@ def main() -> int:
                      ("tri_inv_leaf", lambda: kernel_tri_inv(rates, gen)),
                      ("qgemm", lambda: kernel_qgemm(rates, gen, N_MAIN)),
                      ("panel_update", lambda: kernel_panel(rates, gen,
-                                                           N_MAIN))):
+                                                           N_MAIN)),
+                     ("residual_fused", lambda: kernel_residual(rates, gen,
+                                                                N_MAIN))):
         t0 = time.perf_counter()
         checks, timing = fn()
         torch.cuda.synchronize()
@@ -577,16 +869,35 @@ def main() -> int:
         emit({"phase": "kernel", "name": name, **timing,
               "checks": checks, "phase_s": time.perf_counter() - t0})
 
-    # warm-up of the whole path, then the main path with fresh counts
+    # each driven path runs with fresh counts and must launch its kernels;
+    # the kernels line sums the three paths' counts
+    launches = {k: 0 for k in KERNELS}
+
+    def drive(label, kernels, runs):
+        ops.reset_launches()
+        for run in runs:
+            emit(run())
+        got = dict(ops.LAUNCHES)
+        for k in kernels:
+            if got[k] == 0:
+                raise AssertionError(f"{k} was not launched on the {label} "
+                                     "path")
+            launches[k] += got[k]
+        emit({"phase": f"{label}_launches", **got})
+
+    # warm-up of the whole path, then the main path
     path_run("pure_f32", 2048, 11)
     ladders = ("pure_f32", "bf16_f32", "f16x3_f32", "int8_f32")
-    ops.reset_launches()
-    for i, name in enumerate(ladders):
-        emit(path_run(name, N_MAIN, 100 + i))
-    launches = dict(ops.LAUNCHES)
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"{k} was not launched on the main path")
+    drive("path", PATH_KERNELS,
+          [lambda i=i, name=name: path_run(name, N_MAIN, 100 + i)
+           for i, name in enumerate(ladders)])
+    drive("refine", KERNELS,
+          [lambda i=i, name=name: refine_run(name, N_MAIN, 600 + i)
+           for i, name in enumerate(ladders)]
+          + [lambda: refine_run("bf16_f32", N_MAIN, 610, method="gmres"),
+             lambda: refine_run("bf16_f32", N_MAIN, 611,
+                                residual_dtype="f32")])
+    drive("serve", KERNELS, [lambda: serve_phase(N_MAIN, 700)])
 
     elapsed = time.perf_counter() - t_start
     if elapsed < 500:

@@ -1,9 +1,9 @@
 """SPD factorization / solve entry points, in torch.
 
 Counterpart of ``repro/core/solve.py`` for ``engine="blocked"`` (the
-default). ``engine="tree"``, ``engine="auto"`` and refinement are not
-ported yet and raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+default), refinement included (:func:`refine_solve`). ``engine="tree"``
+and ``engine="auto"`` are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Devices: every entry point takes ``device=``, ``"cuda"`` by default. A
 numpy input goes to that device; a torch tensor stays where it is. On the
@@ -20,8 +20,7 @@ from repro_torch.core.blocked import (blocked_potrf, blocked_trsm_left,
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.tree import pad_factor, pad_spd
 
-#: the ROADMAP items that port what this slice leaves out
-REFINE_ITEM = "ROADMAP A5 (refinement: core/refine.py)"
+#: the ROADMAP items that port what the port leaves out so far
 TREE_ENGINE_ITEM = "ROADMAP A7 (tree engine)"
 AUTO_ENGINE_ITEM = "ROADMAP A8 (census, tuner: engine='auto')"
 
@@ -70,13 +69,18 @@ def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
 
     ``b`` may be (n,) or (n, k). ``l`` reuses a factor, tight (n, n) or
     leaf-padded; ``linvs`` reuses its diagonal-tile inverses
-    (:func:`~repro_torch.core.blocked.diag_tri_inv`). ``refine`` is not
-    ported yet and raises.
+    (:func:`~repro_torch.core.blocked.diag_tri_inv`).
+
+    ``refine`` (int sweep count or
+    :class:`~repro_torch.core.refine.RefineConfig`) runs mixed-precision
+    iterative refinement after the base solve and returns
+    ``refine_solve(...).x``, in the RESIDUAL precision, not ``b.dtype``;
+    it needs ``a``.
     """
     cfg = cfg or PrecisionConfig()
     if refine is not None:
-        raise NotImplementedError(f"cholesky_solve(refine=...) is "
-                                  f"{REFINE_ITEM}")
+        return refine_solve(a, b, cfg, refine=refine, l=l, linvs=linvs,
+                            device=device).x
     _check_engine(cfg)
     b = as_tensor(b, device)
     vec = b.dim() == 1
@@ -108,6 +112,24 @@ def solve_factored(l, b, cfg: PrecisionConfig | None = None, *, linvs=None,
     """Two triangular solves with an existing factor (``linvs`` reuses
     cached diagonal-tile inverses)."""
     return cholesky_solve(None, b, cfg, l=l, linvs=linvs, device=device)
+
+
+def refine_solve(a, b, cfg: PrecisionConfig | None = None, *,
+                 refine=None, l=None, col_tol=None, linvs=None,
+                 device="cuda"):
+    """Accuracy-targeted solve: cheap-ladder factorization + iterative
+    refinement. Returns the full
+    :class:`~repro_torch.core.refine.RefineResult` (solution, residual
+    history, sweeps, converged — per column for an (n, k) ``b``).
+    ``refine`` is an int sweep bound or a ``RefineConfig`` (classic IR or
+    GMRES-IR); ``None`` means the default 5-sweep IR. ``col_tol`` sets
+    per-column tolerances; ``l``/``linvs`` reuse a cached factor and its
+    diagonal-tile inverses."""
+    from repro_torch.core import refine as _refine  # circular-import guard
+    if cfg is not None:
+        _check_engine(cfg)
+    return _refine.iterative_refine(a, b, cfg, refine, l=l, col_tol=col_tol,
+                                    linvs=linvs, device=device)
 
 
 def logdet(l):

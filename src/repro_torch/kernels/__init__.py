@@ -7,6 +7,7 @@ Modules:
   potrf.py  — potrf_leaf, tri_inv_leaf (csrc/potrf.cu, csrc/tri_inv.cu)
   qgemm.py  — mixed-precision GEMM (csrc/qgemm.cu)
   panel.py  — fused panel update of the blocked engine (csrc/panel.cu)
+  residual.py — fused refinement residual b - A x (csrc/residual.cu)
   _build.py — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing: the kernels are compiled at their

@@ -1,6 +1,7 @@
 """Kernel dispatch by device, with one launch counter per kernel.
 
-Counterpart of ``repro/kernels/ops.py`` for the factor and solve path.
+Counterpart of ``repro/kernels/ops.py`` for the factor, solve and
+refinement path.
 The dispatch rule has no switch: a tensor on the CPU runs the plain
 version in :mod:`repro_torch.kernels.ref`; a tensor on a CUDA device
 launches the hand-written kernel, for f32 and f64 alike (the card has
@@ -21,9 +22,10 @@ from repro_torch.kernels import panel as _panel
 from repro_torch.kernels import potrf as _potrf
 from repro_torch.kernels import qgemm as _qgemm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import residual as _residual
 
 LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
-            "panel_update": 0}
+            "panel_update": 0, "residual_fused": 0}
 
 
 def reset_launches() -> None:
@@ -75,6 +77,16 @@ def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
                             out_dtype=out_dtype, out=out)
     return _store(_ref.qgemm_ref(a, b, trans_b=trans_b, scale=scale, c=c,
                                  beta=beta, out_dtype=out_dtype), out)
+
+
+def residual(a, x, b):
+    """Fused refinement residual ``r = b - a @ x`` (``x``/``b`` (n,) or
+    (n, k)), in ``b``'s dtype; f64 runs the kernel's f64 instance on the
+    card where the reference routes it to its oracle."""
+    if _on_card(a, x, b):
+        LAUNCHES["residual_fused"] += 1
+        return _residual.residual_fused(a, x, b)
+    return _ref.residual_ref(a, x, b)
 
 
 def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,

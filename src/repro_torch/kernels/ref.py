@@ -1,11 +1,18 @@
 """Plain PyTorch versions of the ported kernels.
 
-Counterpart of ``repro/kernels/ref.py`` for the kernels of the factor and
-solve path (``qgemm``, ``potrf_leaf``, ``tri_inv_leaf``,
-``panel_update``). They are what :mod:`repro_torch.kernels.ops` runs for a
-tensor on the CPU, and what the CUDA kernels are held against on the card.
-Each follows the reference's arithmetic step for step: the same casts, the
-same per-tile absmax and the same order of roundings.
+Counterpart of ``repro/kernels/ref.py`` for the kernels of the factor,
+solve and refinement path (``qgemm``, ``potrf_leaf``, ``tri_inv_leaf``,
+``panel_update``, ``residual_fused``). They are what
+:mod:`repro_torch.kernels.ops` runs for a tensor on the CPU, and what the
+CUDA kernels are held against on the card. Each follows the reference's
+arithmetic step for step: the same casts, the same per-tile absmax and the
+same order of roundings.
+
+The products with right-hand sides (``qgemm_ref``, ``residual_ref``) run
+column by column (:func:`_matmul_cols`): torch's CPU GEMM picks another
+kernel, and so another summation order, below 12 columns, and a column's
+refinement trajectory must not depend on how many columns share its block
+(``core/refine.py``, the continuous == window contract).
 """
 from __future__ import annotations
 
@@ -19,6 +26,16 @@ def _acc_dtype(*xs):
     if any(x.dtype == torch.float64 for x in xs):
         return torch.float64
     return torch.float32
+
+
+def _matmul_cols(a, b):
+    """``a @ b`` one column of ``b`` at a time, so that each output column
+    is the same matrix-vector product whatever ``b``'s width, its column
+    position or its strides (``b`` may be (k,) or (k, m))."""
+    if b.dim() == 1:
+        return a @ b.contiguous()
+    return torch.stack([a @ b[:, j].contiguous() for j in range(b.shape[1])],
+                       dim=1)
 
 
 def qgemm_ref(a, b, *, trans_b=False, scale=1.0, c=None, beta=0.0,
@@ -35,11 +52,20 @@ def qgemm_ref(a, b, *, trans_b=False, scale=1.0, c=None, beta=0.0,
         ad = torch.float32
     else:
         ad = _acc_dtype(a, b, *((c,) if c is not None else ()))
-        acc = a.to(ad) @ bt.to(ad)
+        acc = _matmul_cols(a.to(ad), bt.to(ad))
     out = acc.to(ad) * torch.as_tensor(scale, dtype=ad, device=a.device)
     if c is not None:
         out = out + torch.as_tensor(beta, dtype=ad, device=a.device) * c.to(ad)
     return out.to(out_dtype)
+
+
+def residual_ref(a, x, b):
+    """IR residual ``r = b - a @ x`` with f32 accumulation (f64 if any
+    operand is f64), returned in ``b.dtype``; ``x``/``b`` are (n,) or
+    (n, k)."""
+    ad = _acc_dtype(a, x, b)
+    acc = _matmul_cols(a.to(ad), x.to(ad))
+    return (b.to(ad) - acc).to(b.dtype)
 
 
 def _compute_dtype(dt):

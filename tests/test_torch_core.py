@@ -122,7 +122,7 @@ def test_pad_spd_matches_reference():
 def test_import_has_no_jax():
     """repro_torch imports neither jax nor the JAX package."""
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -153,8 +153,13 @@ def test_unported_engines_raise(engine):
 
 
 def test_refine_raises():
-    a = np.eye(128, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tc.cholesky_solve(a, np.ones(128, np.float32),
-                          tc.PrecisionConfig(leaf=128), refine=2,
-                          device="cpu")
+    """Refinement is ported: cholesky_solve(refine=) is refine_solve's x,
+    bitwise (the test keeps the name of the one that pinned the raise)."""
+    rng = np.random.default_rng(3)
+    m = rng.standard_normal((128, 128))
+    a = (m @ m.T + 128 * np.eye(128)).astype(np.float32)
+    b = rng.standard_normal(128).astype(np.float32)
+    cfg = tc.PrecisionConfig(leaf=128)
+    x = tc.cholesky_solve(a, b, cfg, refine=2, device="cpu")
+    assert torch.equal(x, tc.refine_solve(a, b, cfg, refine=2,
+                                          device="cpu").x)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.plan import build_plan
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.kernels import ops, panel, potrf, qgemm
+from repro_torch.kernels import ops, panel, potrf, qgemm, residual
 from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(2)
@@ -194,10 +194,65 @@ def test_panel_round_tiles_matches_reference_f64(jx):
     assert not np.array_equal(want, x)
 
 
+_RESID_SHAPES = [(128, 1), (256, 4), (300, 3), (129, 130), (512, 8)]
+
+
+@pytest.mark.parametrize("n,k", _RESID_SHAPES)
+def test_residual_ref_shapes(jx, n, k):
+    rng = np.random.default_rng(n + k)
+    a, x, b = _rand(rng, (n, n)), _rand(rng, (n, k)), _rand(rng, (n, k))
+    want = jx.ref.residual_ref(*(jx.jnp.asarray(v) for v in (a, x, b)))
+    got = ops.residual(*(torch.from_numpy(v) for v in (a, x, b)))
+    assert got.dtype == torch.float32
+    # tests/test_kernels.py's tolerance: the two f32 sums run in other orders
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-3)
+
+
+def test_residual_ref_vector_and_f64(jx):
+    """A vector x gives a vector; f64 operands accumulate in f64 (the
+    reference under x64), so the two agree to f64 roundoff."""
+    import jax
+    rng = np.random.default_rng(200)
+    a, x, b = (rng.standard_normal(s) for s in ((200, 200), (200,), (200,)))
+    with jax.enable_x64(True):
+        want = np.asarray(jx.ref.residual_ref(
+            *(jx.jnp.asarray(v) for v in (a, x, b))))
+    got = ops.residual(*(torch.from_numpy(v) for v in (a, x, b)))
+    assert got.shape == (200,) and got.dtype == torch.float64
+    # 200-term f64 sums of O(10) entries in another order: 1e-12 absolute
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    got32 = ops.residual(*(torch.from_numpy(v.astype(np.float32))
+                           for v in (a, x, b)))
+    want32 = jx.ref.residual_ref(*(jx.jnp.asarray(v, jx.jnp.float32)
+                                   for v in (a, x, b)))
+    np.testing.assert_allclose(got32.numpy(), np.asarray(want32), rtol=2e-4,
+                               atol=2e-3)
+
+
+def test_plain_products_are_column_independent():
+    """A column's residual and qgemm product are bitwise the same whatever
+    the number of columns beside it and its position among them (torch's
+    CPU GEMM alone is not: it changes kernels below 12 columns)."""
+    rng = np.random.default_rng(7)
+    n = 300
+    a = torch.from_numpy(_rand(rng, (n, n)))
+    x = torch.from_numpy(_rand(rng, (n, 32)))
+    b = torch.from_numpy(_rand(rng, (n, 32)))
+    full = ops.residual(a, x, b)
+    prod = ops.qgemm(a, x)
+    for cols in ([5], [5, 0], [31, 5, 9], list(range(5, 21))):
+        got = ops.residual(a, x[:, cols], b[:, cols])
+        assert torch.equal(got, full[:, cols]), cols
+        assert torch.equal(ops.qgemm(a, x[:, cols]), prod[:, cols]), cols
+    assert torch.equal(ops.residual(a, x[:, 5], b[:, 5]), full[:, 5])
+
+
 def test_cpu_calls_count_no_launch():
     ops.reset_launches()
     ops.potrf(torch.eye(128))
     ops.qgemm(torch.eye(64), torch.eye(64))
+    ops.residual(torch.eye(64), torch.ones(64), torch.ones(64))
     assert set(ops.LAUNCHES.values()) == {0}
 
 
@@ -209,6 +264,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         potrf.tri_inv_leaf(torch.eye(128))
     with pytest.raises(ValueError):
         qgemm.qgemm(torch.eye(64), torch.eye(64))
+    with pytest.raises(ValueError):
+        residual.residual_fused(torch.eye(64), torch.ones(64),
+                                torch.ones(64))
     linv, a21, c, kw = _panel_case(("f32",), 2)
     with pytest.raises(ValueError):
         panel.panel_update(torch.from_numpy(linv), torch.from_numpy(a21),
@@ -268,3 +326,51 @@ def test_panel_update_kernel(card, levels, nt, rounding):
     torch.testing.assert_close(c_k, cr, rtol=0,
                                atol=unit * cr.abs().max().item())
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _RESID_SHAPES + [(16384, 16)])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_residual_kernel(card, n, k, dt):
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    g = torch.Generator(device=card).manual_seed(n + k)
+    a, x, b = (torch.randn(s, generator=g, device=card, dtype=dtype)
+               for s in ((n, n), (n, k), (n, k)))
+    got = residual.residual_fused(a, x, b)
+    want = tref.residual_ref(a, x, b)
+    # n-term sums of N(0, 1) products in other orders: f32 at the
+    # reference suite's tolerance, f64 at 1e-12 relative to sqrt(n)
+    tol = (dict(rtol=2e-4, atol=2e-3) if dt == "f32"
+           else dict(rtol=0, atol=1e-12 * n ** 0.5))
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_residual_kernel_columns_bitwise(card, dt):
+    """Column j's result does not depend on k, on its position, on its
+    neighbours, on the strides of x/b or on the A load path (aligned 16-byte
+    loads vs scalar loads for a ragged leading dimension)."""
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    g = torch.Generator(device=card).manual_seed(3)
+    n = 300
+    big = torch.randn((304, 304), generator=g, device=card, dtype=dtype)
+    a_view = big[:n, :n]                  # leading dimension 304: aligned
+    a_tight = a_view.contiguous()         # leading dimension 300: scalar
+    x = torch.randn((n, 32), generator=g, device=card, dtype=dtype)
+    b = torch.randn((n, 32), generator=g, device=card, dtype=dtype)
+    full = residual.residual_fused(a_view, x, b)
+    assert torch.equal(residual.residual_fused(a_tight, x, b), full)
+    other = torch.randn((n, 16), generator=g, device=card, dtype=dtype)
+    x16, b16 = other.clone(), other.clone()
+    x16[:, 7], b16[:, 7] = x[:, 5], b[:, 5]
+    assert torch.equal(residual.residual_fused(a_view, x16, b16)[:, 7],
+                       full[:, 5])
+    for cols in ([5, 0], [5], [9, 31, 5]):
+        got = residual.residual_fused(a_view, x[:, cols], b[:, cols])
+        assert torch.equal(got, full[:, cols]), cols
+    assert torch.equal(residual.residual_fused(a_view, x[:, 5], b[:, 5]),
+                       full[:, 5])
+    inplace = b.clone()
+    residual.residual_fused(a_view, x, inplace, out=inplace)
+    assert torch.equal(inplace, full)
