@@ -9,38 +9,54 @@ line; a failing check raises, and the script exits non-zero with no
 result line. Phases:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
-2. ``kernel``: each of the five kernels against its plain PyTorch version
+2. ``kernel``: each of the eight kernels against its plain PyTorch version
    on the card, for every operand type and rounding variant, at the
-   shapes of tests/test_kernels.py and at the main path's shapes
-   (leaf b = 256, the first diagonal tile of the n = 16384 matrix, panel
-   heights m = 256 .. n - 256, the residual at n = 16384 with 16
-   columns); times of the kernel, the plain version and the one PyTorch
-   call computing the same function (where there is one), beside the
-   card's least time for that work. ``residual_fused`` is also checked
-   for column independence, bitwise.
-3. ``path``: the port's main path, ``cholesky_solve`` with 16 right-hand
-   sides and with one vector, at n = 16384 on the paper's §IV-A matrix,
-   for the ladders pure_f32, bf16_f32, f16x3_f32 and int8_f32; factor
-   and solve times, peak memory, the residual ||b - A x|| / ||b|| in f64
-   and each kernel's launch count, which must match the schedule. Then
-   bf16_f32 at n = 32768 and f32x3_f64 at n = 4096.
-4. ``refine``: ``refine_solve`` with 16 right-hand sides at n = 16384,
+   shapes of tests/test_kernels.py and at the main paths' shapes (leaf
+   b = 256, the first diagonal tile of the n = 16384 matrix, panel
+   heights m = 256 .. n - 256, the residual at n = 16384 with 16 columns;
+   the tree engine's leaves: ``trsm_leaf`` with M = 256 and 8192,
+   ``syrk_leaf`` with k = 256 and 8192 in every level type,
+   ``syrk_packed`` at n = k = 8192 and a ragged (500, 513)); times of the
+   kernel, the plain version and the one PyTorch call computing the same
+   function (where there is one), beside the card's least time for that
+   work. ``residual_fused`` is also checked for column independence,
+   bitwise, and the triangular decode the kernels run against integer
+   arithmetic.
+3. ``path``: the blocked engine's main path, ``cholesky_solve`` with 16
+   right-hand sides and with one vector, at n = 16384 on the paper's
+   §IV-A matrix, for the ladders pure_f32, bf16_f32, f16x3_f32 and
+   int8_f32; factor and solve times, peak memory, the residual
+   ||b - A x|| / ||b|| in f64 and each kernel's launch count, which must
+   match the schedule. Then bf16_f32 at n = 32768 and f32x3_f64 at
+   n = 4096.
+4. ``tree_path``: the same for ``engine="tree"`` (the paper's nested
+   recursion), whose launches must match the schedule counted from the
+   recursion and ``cfg.split``; each ladder's tree factor must lie within
+   ``TOL[levels[0]]`` of the blocked factor of the same matrix; f32x3_f64
+   at n = 4096; the packed storage (``TreeSPD``, ``tree_potrf_packed``)
+   at n = 16384 for f16x3_f32 and int8_f32: its bytes against
+   ``storage_ratio`` and its factor against the dense tree factor. Then
+   ``syrk_race``: the paper's Fig. 4 race at the factor's top-level
+   trailing update (8192 x 8192, k = 8192), tree-SYRK against the flat
+   ``syrk_packed`` called through ``ops.syrk(packed=True)``.
+5. ``refine``: ``refine_solve`` with 16 right-hand sides at n = 16384,
    at most 10 sweeps: classic IR with f64 residuals to 1e-10 for the four
-   ladders (every column must converge, >= 10 digits in f64), GMRES-IR
-   once and IR with the default f32 residual once (bf16_f32; never worse
-   than the unrefined solve); sweeps, digits before and after, wall and
-   sweep ms, and launch counts checked against the sweep schedule.
-5. ``serve``: ``SolverEngine("bf16_f32", residual_dtype="f64")`` at
+   ladders and for bf16_f32 on the tree engine (every column must
+   converge, >= 10 digits in f64), GMRES-IR once and IR with the default
+   f32 residual once (bf16_f32; never worse than the unrefined solve);
+   sweeps, digits before and after, wall and sweep ms, and launch counts
+   checked against the sweep schedule.
+6. ``serve``: ``SolverEngine("bf16_f32", residual_dtype="f64")`` at
    n = 16384 answers 48 single-column requests (targets 6, 8, 10, 12
    digits) through a continuous ``BatchScheduler`` (16 slots) and through
    a windowed drain; requests/s of each with the factor excluded, sweeps,
    convergence, cache hits, the card's busy share, and the two modes
    compared request for request.
-6. ``breakdown``: device time by kernel inside one factor and one
-   16-column solve of f16x3_f32 at n = 16384 (torch.profiler), and the
-   card's busy share of the wall time.
-7. ``cpu_agreement``: each ladder's factor on the card against the same
-   port run on the CPU at n = 2048.
+7. ``breakdown``: device time by kernel inside one factor and one
+   16-column solve of f16x3_f32 at n = 16384, blocked and tree
+   (torch.profiler), and the card's busy share of the wall time.
+8. ``cpu_agreement``: each ladder's factor on the card against the same
+   port run on the CPU at n = 2048, both engines.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
@@ -55,6 +71,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -72,9 +89,19 @@ KERNELS = {
                      "src/repro/kernels/panel.py:129"),
     "residual_fused": ("src/repro_torch/kernels/csrc/residual.cu",
                        "src/repro/kernels/residual.py:58"),
+    "trsm_leaf": ("src/repro_torch/kernels/csrc/trsm.cu",
+                  "src/repro/kernels/trsm.py:33"),
+    "syrk_leaf": ("src/repro_torch/kernels/csrc/syrk.cu",
+                  "src/repro/kernels/syrk.py:68"),
+    "syrk_packed": ("src/repro_torch/kernels/csrc/syrk.cu",
+                    "src/repro/kernels/syrk.py:137"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
+TREE_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "trsm_leaf",
+                "syrk_leaf")
+REFINE_KERNELS = PATH_KERNELS + ("residual_fused", "trsm_leaf", "syrk_leaf")
+SERVE_KERNELS = PATH_KERNELS + ("residual_fused",)
 #: factor-agreement tolerance by the ladder's coarsest level
 #: (tests/test_blocked.py:_TOL)
 TOL = {"f16": 5e-3, "bf16": 4e-2, "int8": 4e-2, "f32": 5e-6, "f64": 1e-12}
@@ -84,6 +111,13 @@ TOL = {"f16": 5e-3, "bf16": 4e-2, "int8": 4e-2, "f32": 5e-6, "f64": 1e-12}
 #: 5.57, int8_f32 4.85, f32x3_f64 9.50 at n = 4096) less 0.3 digits
 DIGITS_FLOOR = {"pure_f32": 5.7, "bf16_f32": 5.0, "f16x3_f32": 5.3,
                 "int8_f32": 4.5, "f32x3_f64": 9.2}
+#: the same for engine="tree", whose solve sweeps run their top-level
+#: GEMMs in the ladder's narrow type (the reference's Alg. 2 left form),
+#: so they keep fewer digits than the blocked engine's high-precision
+#: ones: measured on an H100 SXM (pure_f32 6.50, bf16_f32 2.78, f16x3_f32
+#: 3.44, int8_f32 1.98 at n = 16384, f32x3_f64 7.36 at n = 4096) less 0.3
+TREE_DIGITS_FLOOR = {"pure_f32": 6.2, "bf16_f32": 2.4, "f16x3_f32": 3.1,
+                     "int8_f32": 1.6, "f32x3_f64": 7.0}
 #: main-path size: the order of A and the n of the main-path kernel shapes
 N_MAIN = 16384
 #: one unit of a level's grid, relative to the tile's scale
@@ -510,6 +544,207 @@ def kernel_residual(rates, gen, n):
     return checks, {**timing["f64"], "f32": timing["f32"]}
 
 
+def _gamma_atol(k, u, bound):
+    """|kernel - plain| for two sums of k products in other orders: each
+    lies within k u sum|products| of the exact sum, and ``bound`` bounds
+    that sum; one more unit for the epilogue's rounding."""
+    return 2 * (k + 2) * u * bound
+
+
+def _unit(*dtypes):
+    return 2.0 ** -53 if torch.float64 in dtypes else 2.0 ** -24
+
+
+def kernel_trsm(rates, gen, n):
+    """trsm_leaf (B @ L^-T through L^-1) against its plain product and, via
+    ops.trsm (tri_inv_leaf + trsm_leaf), against the triangular solve."""
+    from repro_torch.kernels import ops, potrf, ref, trsm
+    checks = []
+
+    def one(what, b, l, dtype):
+        linv = potrf.tri_inv_leaf(l)
+        got = trsm.trsm_leaf(b, linv)
+        want = ref.qgemm_ref(b, linv, trans_b=True, out_dtype=dtype)
+        atol = _gamma_atol(l.shape[0], _unit(dtype),
+                           float((b.abs() @ linv.abs().T).max()))
+        err = check_close(what, got, want, 0, atol)
+        dirty = linv + torch.triu(torch.full_like(linv, 1e3), 1)
+        if not torch.equal(trsm.trsm_leaf(b, dirty), got):
+            raise AssertionError(f"{what}: read above the diagonal")
+        # inverse-then-product vs substitution: the reference suite's
+        # tolerance in f32, 1e-12 in f64
+        stol = 2e-4 if dtype == torch.float32 else 1e-12
+        err2 = check_close(f"{what} solve", ops.trsm(b, l),
+                           ref.trsm_ref(b, l), stol, stol)
+        return err, err2, atol
+
+    def tri(m, dtype):
+        r = torch.randn((m, m), generator=gen, device="cuda", dtype=dtype)
+        return r.tril() + 4 * math.sqrt(m) * torch.eye(m, device="cuda",
+                                                        dtype=dtype)
+    for (m, nn) in [(128, 128), (700, 256), (1024, 128), (65, 384)]:
+        for tn, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            wide = torch.randn((m, nn + 32), generator=gen, device="cuda",
+                               dtype=dt)
+            err, err2, atol = one(f"trsm {tn} {m}x{nn}",
+                                  wide[:, 16:16 + nn], tri(nn, dt), dt)
+            checks.append({"shape": [m, nn], "dtype": tn, "max_abs_err": err,
+                           "tol": f"atol {atol:g} (2(n+2) u max |B||Linv|^T)",
+                           "solve_err": err2, "upper_never_read": True})
+    # main path: the panel leaves of the n = 16384 tree factor, B (M, 256)
+    # with M = 256 .. 8192 against the factor of the first diagonal tile
+    b = 256
+    l = potrf.potrf_leaf(main_tile(b, n, 3))
+    for m in (256, n // 2):
+        x = torch.randn((m, b), generator=gen, device="cuda") / 64
+        err, err2, atol = one(f"trsm main M={m}", x, l, torch.float32)
+        checks.append({"shape": [m, b], "dtype": "f32", "case": "main path",
+                       "max_abs_err": err, "solve_err": err2,
+                       "tol": f"atol {atol:g}"})
+    linv = potrf.tri_inv_leaf(l)
+    out = torch.empty_like(x)
+    m = n // 2
+    flops = m * b * (b + 1.0)            # the lower triangle's MACs, x 2
+    nbytes = 4 * (2 * m * b + b * (b + 1) / 2)
+    bound, by = bound_ms(flops, nbytes, "f32", rates)
+    xt = x.T.contiguous()
+    return checks, {
+        "max_abs_err": err, "tol": f"atol {atol:g} (2(n+2) u max|B||Linv|^T)",
+        "ms": cuda_ms(lambda: trsm.trsm_leaf(x, linv, out=out)),
+        "plain_ms": cuda_ms(lambda: ref.qgemm_ref(x, linv, trans_b=True),
+                            reps=5),
+        "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+            l, xt, upper=False)),
+        "library": "torch.linalg.solve_triangular(L, B^T) (the solve, "
+                   "without the inverse)",
+        "bound_ms": bound, "bound_by": by, "shape": [m, b]}
+
+
+_SYRK_TYPES = {"f32": (torch.float32, torch.float32),
+               "bf16": (torch.bfloat16, torch.float32),
+               "f16": (torch.float16, torch.float32),
+               "int8": (torch.int8, torch.float32),
+               "f32-c64": (torch.float32, torch.float64),
+               "f64": (torch.float64, torch.float64)}
+
+
+def _syrk_operands(gen, n, k, tn, amp=1.0):
+    adt, cdt = _SYRK_TYPES[tn]
+    c = torch.randn((n, n), generator=gen, device="cuda", dtype=cdt)
+    if adt == torch.int8:
+        a = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        a = (torch.randn((n, k), generator=gen, device="cuda") * amp).to(adt)
+    return c, a
+
+
+def _syrk_check(what, fn, c, a, scale, beta):
+    """fn against syrk_ref; the strict upper triangle of c kept bitwise;
+    in place (out=c) and a second run give the same bits."""
+    from repro_torch.kernels import ref
+    got = fn(c, a, scale, beta)
+    want = ref.syrk_ref(c, a, scale=scale, beta=beta)
+    aw = a.double()
+    diag = float((aw * aw).sum(dim=1).max())
+    atol = _gamma_atol(a.shape[1], _unit(a.dtype, c.dtype),
+                       abs(float(scale)) * diag
+                       + abs(float(beta)) * float(c.abs().max()))
+    err = check_close(what, got, want, 0, atol)
+    if not torch.equal(torch.triu(got, 1), torch.triu(c, 1)):
+        raise AssertionError(f"{what}: upper triangle of C changed")
+    inplace = c.clone()
+    fn(inplace, a, scale, beta, out=inplace)
+    if not torch.equal(inplace, got) or not torch.equal(
+            fn(c, a, scale, beta), got):
+        raise AssertionError(f"{what}: not the same bits in place / again")
+    return err, atol
+
+
+_SYRK_TOL = "atol 2(k+2) u (|scale| max diag(A A^T) + |beta| max|C|)"
+
+
+def kernel_syrk_leaf(rates, gen):
+    """syrk_leaf at tests/test_kernels.py's shapes and at the tree leaves'
+    k = 256 and 8192, every level type, scale read from the card."""
+    from repro_torch.kernels import ref, syrk
+    checks = []
+    for (n, k) in [(128, 128), (256, 1000), (256, 64), (256, 256),
+                   (256, 8192)]:
+        for tn in _SYRK_TYPES:
+            c, a = _syrk_operands(gen, n, k, tn)
+            scale = torch.tensor(-0.37, device="cuda")
+            err, atol = _syrk_check(f"syrk_leaf {tn} {n}x{k}",
+                                    syrk.syrk_leaf, c, a, scale, 0.9)
+            checks.append({"shape": [n, k], "dtype": tn, "max_abs_err": err,
+                           "tol": f"{_SYRK_TOL} = {atol:g}",
+                           "chunks": syrk.leaf_chunk(n, k)[1],
+                           "upper_kept_inplace_deterministic": True})
+    # timing: the main path's widest leaf, f32 (pure_f32) and bf16
+    n, k = 256, 8192
+    timing = {}
+    for tn in ("f32", "bf16"):
+        c, a = _syrk_operands(gen, n, k, tn, amp=1 / 64)
+        out = c.clone()
+        esz = a.element_size()
+        bound, by = bound_ms(n * (n + 1.0) * k, esz * n * k + 8 * n * n,
+                             "f32", rates)
+        af = a.float()
+        err = next(ch["max_abs_err"] for ch in checks
+                   if ch["shape"] == [n, k] and ch["dtype"] == tn)
+        timing[tn] = {
+            "max_abs_err": err, "tol": _SYRK_TOL,
+            "ms": cuda_ms(lambda: syrk.syrk_leaf(c, a, -1.0, 1.0, out=out)),
+            "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0)),
+            "library_ms": cuda_ms(lambda: torch.addmm(c, af, af.T, beta=1.0,
+                                                      alpha=-1.0, out=out)),
+            "library": "torch.addmm(c, a, a.T) in f32 (both triangles)",
+            "bound_ms": bound, "bound_by": by, "shape": [n, k], "dtype": tn}
+    return checks, {**timing["f32"], "bf16": timing["bf16"]}
+
+
+def kernel_syrk_packed(rates, gen, n):
+    """syrk_packed at tests/test_kernels.py's shapes (ragged n and k
+    included) and at n = k = 8192; and the triangular decode."""
+    from repro_torch.kernels import ref, syrk
+    checks = []
+    count = 200000
+    i, j = (t.cpu().numpy().astype(np.int64) for t in syrk.tri_decode(count))
+    if not (np.array_equal(i * (i + 1) // 2 + j, np.arange(count))
+            and (j <= i).all() and (j >= 0).all()):
+        raise AssertionError("tri_decode is not exact below 200000")
+    checks.append({"case": "tri_decode t < 200000 vs numpy integer "
+                   "arithmetic", "exact": True})
+    for (m, k) in [(512, 256), (640, 300), (500, 513), (256, 128)]:
+        for tn in ("f32", "bf16", "int8", "f64"):
+            c, a = _syrk_operands(gen, m, k, tn)
+            err, atol = _syrk_check(f"syrk_packed {tn} {m}x{k}",
+                                    syrk.syrk_packed, c, a, 0.7, 0.9)
+            checks.append({"shape": [m, k], "dtype": tn, "max_abs_err": err,
+                           "tol": f"{_SYRK_TOL} = {atol:g}",
+                           "upper_kept_inplace_deterministic": True})
+    m = k = n // 2
+    c, a = _syrk_operands(gen, m, k, "f32", amp=1 / 64)
+    err, atol = _syrk_check("syrk_packed main", syrk.syrk_packed, c, a,
+                            -1.0, 1.0)
+    checks.append({"shape": [m, k], "dtype": "f32", "case": "main",
+                   "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}"})
+    out = c.clone()
+    bound, by = bound_ms(m * (m + 1.0) * k, 4 * (m * k + 2 * m * m), "f32",
+                         rates)
+    return checks, {
+        "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}",
+        "ms": cuda_ms(lambda: syrk.syrk_packed(c, a, -1.0, 1.0, out=out),
+                      reps=3, warmup=1),
+        "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0), reps=3,
+                            warmup=1),
+        "library_ms": cuda_ms(lambda: torch.addmm(c, a, a.T, beta=1.0,
+                                                  alpha=-1.0, out=out),
+                              reps=3, warmup=1),
+        "library": "torch.addmm(c, a, a.T) (both triangles)",
+        "bound_ms": bound, "bound_by": by, "shape": [m, k]}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -537,9 +772,9 @@ def path_run(name, n, seed):
     b16 = torch.randn((n, 16), generator=g, device="cuda", dtype=high)
     b1 = torch.randn((n,), generator=g, device="cuda", dtype=high)
     T = n // cfg.leaf
-    schedule = {"potrf_leaf": T, "tri_inv_leaf": 2 * T - 1,
-                "panel_update": T - 1, "qgemm": 2 * (2 * T - 1),
-                "residual_fused": 0}
+    schedule = {**dict.fromkeys(ops.LAUNCHES, 0), "potrf_leaf": T,
+                "tri_inv_leaf": 2 * T - 1, "panel_update": T - 1,
+                "qgemm": 2 * (2 * T - 1)}
     line = {"phase": "path", "ladder": name, "n": n, "leaf": cfg.leaf,
             "dtype": str(high).replace("torch.", "")}
     counts = {}
@@ -594,23 +829,236 @@ def path_run(name, n, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: refinement
+# phase 4: the tree engine
 # ---------------------------------------------------------------------------
-def refine_run(name, n, seed, *, method="ir", residual_dtype="f64"):
-    """refine_solve with 16 right-hand sides against a cached factor and
-    its diagonal inverses, at most 10 sweeps to 1e-10; the launches of
-    the call are checked against the sweep schedule: per loop iteration
-    one residual and one correction solve (254 qgemm at T = 64), GMRES-IR
-    adding gmres_restart solves per restart."""
+def tree_schedule(cfg, n):
+    """Launches of one tree factor and of one two-sweep solve, counted by
+    walking the recursion of core/tree.py with ``cfg.split``."""
+    from repro_torch.kernels import ops
+    fac = dict.fromkeys(ops.LAUNCHES, 0)
+    sol = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def walk(m, counts, leaf_keys):
+        """A recursion over m (tree_trsm, tree_syrk, tree_trsm_left): one
+        qgemm per internal node, ``leaf_keys`` per leaf."""
+        if m <= cfg.leaf:
+            for key in leaf_keys:
+                counts[key] += 1
+            return
+        counts["qgemm"] += 1
+        m1 = cfg.split(m)
+        walk(m1, counts, leaf_keys)
+        walk(m - m1, counts, leaf_keys)
+
+    def potrf(m):
+        if m <= cfg.leaf:
+            fac["potrf_leaf"] += 1
+            return
+        m1 = cfg.split(m)
+        potrf(m1)
+        walk(m1, fac, ("tri_inv_leaf", "trsm_leaf"))     # L21 = A21 L11^-T
+        walk(m - m1, fac, ("syrk_leaf",))                # A22 -= L21 L21^T
+        potrf(m - m1)
+
+    potrf(n)
+    for _ in range(2):                                   # the two sweeps
+        walk(n, sol, ("tri_inv_leaf", "qgemm"))
+    return fac, sol
+
+
+def _diff(before):
+    from repro_torch.kernels import ops
+    return {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+
+
+def tree_path_run(name, n, seed):
+    """cholesky_solve(..., engine="tree") with 16 right-hand sides and with
+    one vector, the factor and the solves timed apart, each call's
+    launches against the schedule, and the tree factor against the blocked
+    factor of the same matrix."""
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    base = rt.PAPER_CONFIGS[name]
+    cfg = dataclasses.replace(base, engine="tree")
+    high = cfg.high_dtype
+    a = paper_matrix(n, seed, high)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b16 = torch.randn((n, 16), generator=g, device="cuda", dtype=high)
+    b1 = torch.randn((n,), generator=g, device="cuda", dtype=high)
+    fac, sol = tree_schedule(cfg, n)
+    both = {k: fac[k] + sol[k] for k in fac}
+    line = {"phase": "tree_path", "ladder": name, "engine": "tree", "n": n,
+            "leaf": cfg.leaf, "depth": cfg.depth(n),
+            "dtype": str(high).replace("torch.", "")}
+    for label, rhs in (("k16", b16), ("k1", b1)):
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x = rt.cholesky_solve(a, rhs, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _diff(before)
+        if got != both:
+            raise AssertionError(f"tree {name} n={n} {label}: launches {got} "
+                                 f"!= schedule {both}")
+        if not bool(torch.isfinite(x).all()) or x.shape != rhs.shape:
+            raise AssertionError(f"tree {name} n={n} {label}: bad result")
+        res = residual(a, x, rhs)
+        line[f"cholesky_solve_{label}_wall_s"] = wall
+        line[f"residual_{label}"] = res
+        line[f"digits_{label}"] = -math.log10(max(res, 1e-300))
+        line[f"peak_mem_gib_{label}"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+    line["schedule_factor"] = fac
+    line["schedule_solve"] = sol
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before = dict(ops.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    start.record()
+    lt = rt.cholesky_padded(a, cfg)
+    stop.record()
+    torch.cuda.synchronize()
+    line["factor_ms"] = start.elapsed_time(stop)
+    line["factor_peak_gib_over_input"] = (
+        (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30)
+    if _diff(before) != fac:
+        raise AssertionError(f"tree {name}: factor launches {_diff(before)}")
+    for label, rhs in (("k16", b16), ("k1", b1)):
+        before = dict(ops.LAUNCHES)
+        start.record()
+        rt.solve_factored(lt, rhs, cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        line[f"solve_ms_{label}"] = start.elapsed_time(stop)
+        if _diff(before) != sol:
+            raise AssertionError(f"tree {name}: solve launches "
+                                 f"{_diff(before)}")
+    # the reference's equivalence test (tests/test_blocked.py:47) at size
+    lb = rt.cholesky_padded(a, base)
+    rel = float((lt.double() - lb.double()).abs().max()
+                / lb.double().abs().max())
+    tol = TOL[cfg.levels[0]]
+    line["vs_blocked_rel"] = rel
+    line["vs_blocked_tol"] = tol
+    if not rel < tol:
+        raise AssertionError(f"tree {name} n={n}: vs blocked {rel:g} >= "
+                             f"{tol:g}")
+    floor = TREE_DIGITS_FLOOR.get(name)
+    if floor is not None:
+        for label in ("k16", "k1"):
+            if line[f"digits_{label}"] < floor:
+                raise AssertionError(f"tree {name} n={n}: "
+                                     f"{line[f'digits_{label}']:.2f} digits "
+                                     f"< floor {floor}")
+    line["digits_floor"] = floor
+    del a, lt, lb
+    torch.cuda.empty_cache()
+    return line
+
+
+def tree_packed_run(name, n, seed):
+    """tree_potrf_packed on TreeSPD.from_dense: the packed factor's bytes
+    against storage_ratio (plus one f32 scale per panel) and the packed
+    factor against the dense tree factor of the same matrix."""
+    import repro_torch as rt
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS[name], engine="tree")
+    a = paper_matrix(n, seed)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    start.record()
+    packed = rt.TreeSPD.from_dense(a, cfg)
+    lp = rt.tree_potrf_packed(packed, cfg)
+    stop.record()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    panels = n // cfg.leaf - 1            # one per internal node
+    want = rt.storage_ratio(n, cfg) * n * n * 4 + 4 * panels
+    got = lp.nbytes()
+    if got != want or packed.nbytes() != want:
+        raise AssertionError(f"packed {name}: nbytes {got}, "
+                             f"{packed.nbytes()} != accounting {want}")
+    dense = lp.to_dense()
+    lt = rt.cholesky_padded(a, cfg)
+    rel = float((dense.double() - lt.double()).abs().max()
+                / lt.double().abs().max())
+    tol = TOL[cfg.levels[0]]
+    if not rel < tol or not bool(torch.isfinite(dense).all()):
+        raise AssertionError(f"packed {name}: vs dense tree {rel:g} >= "
+                             f"{tol:g}")
+    line = {"phase": "tree_packed", "ladder": name, "n": n,
+            "nbytes": got, "dense_f32_bytes": n * n * 4,
+            "storage_ratio": rt.storage_ratio(n, cfg),
+            "nbytes_equals_accounting": True,
+            "from_dense_and_factor_ms": start.elapsed_time(stop),
+            "peak_gib_over_input": peak,
+            "vs_dense_tree_rel": rel, "tol": tol}
+    del a, packed, lp, dense, lt
+    torch.cuda.empty_cache()
+    return line
+
+
+def syrk_race(n, seed):
+    """The paper's Fig. 4 race (benchmarks/bench_syrk.py) at the tree
+    factor's top-level trailing update: C - A A^T with C, A (n/2, n/2),
+    tree-SYRK (pure_f32: syrk_leaf + qgemm) against the flat syrk_packed
+    through ops.syrk(packed=True)."""
+    import repro_torch as rt
+    from repro_torch.kernels import ops
+    m = n // 2
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS["pure_f32"], engine="tree")
+    c = paper_matrix(m, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a = torch.randn((m, m), generator=g, device="cuda") / 64
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    out = {}
+    for label, fn in (
+            ("tree", lambda: rt.tree_syrk(c, a, alpha=-1.0, beta=1.0,
+                                          cfg=cfg)),
+            ("packed", lambda: ops.syrk(c, a, -1.0, 1.0, packed=True))):
+        fn()                                   # warm
+        start.record()
+        res = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out[label] = (start.elapsed_time(stop), res)
+    lo = torch.ones((m, m), dtype=torch.bool, device="cuda").tril()
+    diff = float((out["tree"][1] - out["packed"][1]).abs()[lo].max())
+    atol = _gamma_atol(m, 2.0 ** -24, float((a * a).sum(dim=1).max())
+                       + float(c.abs().max()))
+    if not diff <= atol:
+        raise AssertionError(f"syrk race: tree vs packed {diff:g} > {atol:g}")
+    line = {"phase": "syrk_race", "n": m, "k": m, "ladder": "pure_f32",
+            "tree_ms": out["tree"][0], "packed_ms": out["packed"][0],
+            "tree_vs_packed_max_abs": diff, "tol": atol}
+    del c, a, out
+    torch.cuda.empty_cache()
+    return line
+
+
+# ---------------------------------------------------------------------------
+# phase 5: refinement
+# ---------------------------------------------------------------------------
+def refine_run(name, n, seed, *, method="ir", residual_dtype="f64",
+               engine="blocked"):
+    """refine_solve with 16 right-hand sides against a cached factor (and
+    the blocked engine's diagonal inverses), at most 10 sweeps to 1e-10;
+    the launches of the call are checked against the sweep schedule: per
+    loop iteration one residual and one correction solve (254 qgemm at
+    T = 64, plus 128 tri_inv_leaf on the tree engine, which caches no
+    inverses), GMRES-IR adding gmres_restart solves per restart."""
     import repro_torch as rt
     from repro_torch.core import scaled_solve
     from repro_torch.kernels import ops
-    cfg = rt.PAPER_CONFIGS[name]
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS[name], engine=engine)
     a = paper_matrix(n, seed, cfg.high_dtype)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     b = torch.randn((n, 16), generator=g, device="cuda", dtype=cfg.high_dtype)
     lp = rt.cholesky_padded(a, cfg)
-    linvs = rt.diag_tri_inv(lp, cfg)
+    linvs = rt.diag_tri_inv(lp, cfg) if engine == "blocked" else None
     x0 = rt.solve_factored(lp, b, cfg, linvs=linvs)
     rcfg = rt.RefineConfig(max_sweeps=10, tol=1e-10, method=method,
                            residual_dtype=residual_dtype)
@@ -628,9 +1076,10 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64"):
     loops = max(sweeps)
     T = n // cfg.leaf
     solves = 1 + loops * (rcfg.gmres_restart + 1 if method == "gmres" else 1)
-    schedule = {"potrf_leaf": 0, "tri_inv_leaf": 0, "panel_update": 0,
-                "qgemm": 2 * (2 * T - 1) * solves,
-                "residual_fused": loops + 1}
+    per_solve = (tree_schedule(cfg, n)[1] if engine == "tree" else
+                 {**dict.fromkeys(ops.LAUNCHES, 0), "qgemm": 2 * (2 * T - 1)})
+    schedule = {k: v * solves for k, v in per_solve.items()}
+    schedule["residual_fused"] = loops + 1
     if got != schedule:
         raise AssertionError(f"refine {name} {method}: launches {got} != "
                              f"schedule {schedule}")
@@ -655,8 +1104,8 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64"):
     sweep_ms = cuda_ms(lambda: ops.residual(a_r, x_r + correct(r), b_r),
                        reps=5, warmup=1)
     ops.LAUNCHES.update(counted)
-    line = {"phase": "refine", "ladder": name, "n": n, "k": 16,
-            "method": method, "residual_dtype": residual_dtype,
+    line = {"phase": "refine", "ladder": name, "engine": engine, "n": n,
+            "k": 16, "method": method, "residual_dtype": residual_dtype,
             "tol": rcfg.tol, "max_sweeps": rcfg.max_sweeps,
             "sweeps_per_column": sweeps, "converged": converged,
             "digits_before_min": min(before_d),
@@ -684,7 +1133,9 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64"):
 _SPANS = (("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("qgemm_kernel", "qgemm"), ("round_rows", "panel_update"),
           ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
-          ("commit", "panel_update"), ("residual_kernel", "residual_fused"))
+          ("commit", "panel_update"), ("residual_kernel", "residual_fused"),
+          ("trsm_kernel", "trsm_leaf"), ("syrk_tiles", "syrk_leaf"),
+          ("syrk_reduce", "syrk_leaf"))
 
 
 def _profiled(fn):
@@ -804,24 +1255,32 @@ def serve_phase(n, seed, requests=48, slots=16):
 
 
 def breakdown(name, n, seed):
-    """Device time by kernel inside one factor and one 16-column solve
-    (torch.profiler), and the device's busy share of the wall time."""
+    """Device time by kernel inside one factor and one 16-column solve of
+    each engine (torch.profiler), and the device's busy share of the wall
+    time."""
     import repro_torch as rt
     cfg = rt.PAPER_CONFIGS[name]
+    tcfg = dataclasses.replace(cfg, engine="tree")
     a = paper_matrix(n, seed)
     b16 = torch.ones((n, 16), device="cuda")
     lp = rt.cholesky_padded(a, cfg)
+    lt = rt.cholesky_padded(a, tcfg)
     line = {"phase": "breakdown", "ladder": name, "n": n}
     for label, fn in (("factor", lambda: rt.cholesky_padded(a, cfg)),
-                      ("solve_k16", lambda: rt.solve_factored(lp, b16, cfg))):
+                      ("solve_k16", lambda: rt.solve_factored(lp, b16, cfg)),
+                      ("tree_factor", lambda: rt.cholesky_padded(a, tcfg)),
+                      ("tree_solve_k16",
+                       lambda: rt.solve_factored(lt, b16, tcfg))):
         line[label] = _profiled(fn)
+    del a, lp, lt
+    torch.cuda.empty_cache()
     return line
 
 
-def cpu_agreement(name, n, seed):
+def cpu_agreement(name, n, seed, engine="blocked"):
     """The card's factor against the same port run on the CPU."""
     import repro_torch as rt
-    cfg = rt.PAPER_CONFIGS[name]
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS[name], engine=engine)
     a = paper_matrix(n, seed, cfg.high_dtype)
     lg = rt.cholesky(a, cfg).cpu()
     lc = rt.cholesky(a.cpu(), cfg)
@@ -829,8 +1288,10 @@ def cpu_agreement(name, n, seed):
                 / lc.double().abs().max())
     tol = TOL[cfg.levels[0]]
     if not rel < tol:
-        raise AssertionError(f"{name} n={n}: card vs CPU {rel:g} >= {tol:g}")
-    return {"ladder": name, "n": n, "rel_err": rel, "tol": tol}
+        raise AssertionError(f"{name} {engine} n={n}: card vs CPU {rel:g} >= "
+                             f"{tol:g}")
+    return {"ladder": name, "engine": engine, "n": n, "rel_err": rel,
+            "tol": tol}
 
 
 def main() -> int:
@@ -861,6 +1322,10 @@ def main() -> int:
                      ("panel_update", lambda: kernel_panel(rates, gen,
                                                            N_MAIN)),
                      ("residual_fused", lambda: kernel_residual(rates, gen,
+                                                                N_MAIN)),
+                     ("trsm_leaf", lambda: kernel_trsm(rates, gen, N_MAIN)),
+                     ("syrk_leaf", lambda: kernel_syrk_leaf(rates, gen)),
+                     ("syrk_packed", lambda: kernel_syrk_packed(rates, gen,
                                                                 N_MAIN))):
         t0 = time.perf_counter()
         checks, timing = fn()
@@ -870,7 +1335,7 @@ def main() -> int:
               "checks": checks, "phase_s": time.perf_counter() - t0})
 
     # each driven path runs with fresh counts and must launch its kernels;
-    # the kernels line sums the three paths' counts
+    # the kernels line sums the paths' counts
     launches = {k: 0 for k in KERNELS}
 
     def drive(label, kernels, runs):
@@ -882,22 +1347,33 @@ def main() -> int:
             if got[k] == 0:
                 raise AssertionError(f"{k} was not launched on the {label} "
                                      "path")
+        for k in launches:
             launches[k] += got[k]
         emit({"phase": f"{label}_launches", **got})
 
     # warm-up of the whole path, then the main path
     path_run("pure_f32", 2048, 11)
+    tree_path_run("pure_f32", 2048, 12)
     ladders = ("pure_f32", "bf16_f32", "f16x3_f32", "int8_f32")
     drive("path", PATH_KERNELS,
           [lambda i=i, name=name: path_run(name, N_MAIN, 100 + i)
            for i, name in enumerate(ladders)])
-    drive("refine", KERNELS,
+    drive("tree_path", TREE_KERNELS,
+          [lambda i=i, name=name: tree_path_run(name, N_MAIN, 800 + i)
+           for i, name in enumerate(ladders)]
+          + [lambda: tree_path_run("f32x3_f64", 4096, 810),
+             lambda: tree_packed_run("f16x3_f32", N_MAIN, 811),
+             lambda: tree_packed_run("int8_f32", N_MAIN, 812)])
+    drive("syrk_race", ("syrk_packed", "syrk_leaf", "qgemm"),
+          [lambda: syrk_race(N_MAIN, 820)])
+    drive("refine", REFINE_KERNELS,
           [lambda i=i, name=name: refine_run(name, N_MAIN, 600 + i)
            for i, name in enumerate(ladders)]
           + [lambda: refine_run("bf16_f32", N_MAIN, 610, method="gmres"),
              lambda: refine_run("bf16_f32", N_MAIN, 611,
-                                residual_dtype="f32")])
-    drive("serve", KERNELS, [lambda: serve_phase(N_MAIN, 700)])
+                                residual_dtype="f32"),
+             lambda: refine_run("bf16_f32", N_MAIN, 612, engine="tree")])
+    drive("serve", SERVE_KERNELS, [lambda: serve_phase(N_MAIN, 700)])
 
     elapsed = time.perf_counter() - t_start
     if elapsed < 500:
@@ -907,7 +1383,8 @@ def main() -> int:
               "skipped": f"{elapsed:.0f} s spent before it"})
     emit(path_run("f32x3_f64", 4096, 300))
     emit(breakdown("f16x3_f32", N_MAIN, 500))
-    agree = [cpu_agreement(name, 2048, 400 + i)
+    agree = [cpu_agreement(name, 2048, 400 + i, engine)
+             for engine in ("blocked", "tree")
              for i, name in enumerate(ladders + ("f32x3_f64",))]
     emit({"phase": "cpu_agreement", "runs": agree})
 

@@ -7,6 +7,8 @@ Public API of this slice of the port (counterparts in ``repro.core``):
   blocked_potrf, diag_tri_inv, blocked_trsm_left      — blocked engine
   cholesky, cholesky_padded, cholesky_solve, solve_factored, logdet
   refine_solve, RefineConfig, RefineResult, ...      — iterative refinement
+  tree_potrf, tree_trsm, tree_syrk, tree_trsm_left   — tree engine
+  TreeSPD, tree_potrf_packed, storage_ratio          — packed tree storage
   pad_spd, pad_factor
 """
 from repro_torch.core.blocked import (blocked_potrf, blocked_trsm_left,
@@ -24,7 +26,10 @@ from repro_torch.core.refine import (RefineConfig, RefineResult,
 from repro_torch.core.solve import (cholesky, cholesky_padded,
                                     cholesky_solve, logdet, refine_solve,
                                     solve_factored)
-from repro_torch.core.tree import pad_factor, pad_spd
+from repro_torch.core.tree import (pad_factor, pad_spd, tree_potrf,
+                                   tree_syrk, tree_trsm, tree_trsm_left)
+from repro_torch.core.treematrix import (TreeSPD, storage_ratio,
+                                         tree_potrf_packed)
 
 __all__ = [
     "DTYPES", "NARROW", "PAPER_CONFIGS", "RMAX", "PrecisionConfig",
@@ -35,4 +40,6 @@ __all__ = [
     "refine_operator", "refine_steps", "scaled_solve",
     "cholesky", "cholesky_padded", "cholesky_solve", "logdet",
     "refine_solve", "solve_factored", "pad_factor", "pad_spd",
+    "tree_potrf", "tree_syrk", "tree_trsm", "tree_trsm_left",
+    "TreeSPD", "storage_ratio", "tree_potrf_packed",
 ]

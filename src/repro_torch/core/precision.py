@@ -49,7 +49,7 @@ class PrecisionConfig:
     #: kept for field parity with the reference; the port dispatches on
     #: the tensor's device alone, so only None and "auto" are accepted
     kernel_impl: str | None = None
-    #: only "blocked" runs here; "tree" and "auto" raise at factor time
+    #: "blocked" (default) or "tree"; "auto" raises at factor time
     engine: str = "blocked"
 
     def __post_init__(self):

@@ -1,9 +1,17 @@
 """SPD factorization / solve entry points, in torch.
 
-Counterpart of ``repro/core/solve.py`` for ``engine="blocked"`` (the
-default), refinement included (:func:`refine_solve`). ``engine="tree"``
-and ``engine="auto"`` are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Counterpart of ``repro/core/solve.py``. ``PrecisionConfig.engine``
+selects the execution engine behind every entry point here:
+
+* ``"blocked"`` (default): the flat in-place tile schedule driven by the
+  static precision plan (:mod:`repro_torch.core.blocked`);
+* ``"tree"``: the paper's nested recursion (:mod:`repro_torch.core.tree`),
+  the oracle the blocked engine is checked against. It caches no
+  diagonal-tile inverses (``linvs``): each solve inverts its leaves.
+
+``engine="auto"`` (the tuner's choice) is not ported yet and raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+Refinement is :func:`refine_solve`.
 
 Devices: every entry point takes ``device=``, ``"cuda"`` by default. A
 numpy input goes to that device; a torch tensor stays where it is. On the
@@ -18,10 +26,10 @@ import torch
 from repro_torch.core.blocked import (blocked_potrf, blocked_trsm_left,
                                       diag_tri_inv)
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.core.tree import pad_factor, pad_spd
+from repro_torch.core.tree import (pad_factor, pad_spd, tree_potrf,
+                                   tree_trsm_left)
 
-#: the ROADMAP items that port what the port leaves out so far
-TREE_ENGINE_ITEM = "ROADMAP A7 (tree engine)"
+#: the ROADMAP item that ports what the port leaves out so far
 AUTO_ENGINE_ITEM = "ROADMAP A8 (census, tuner: engine='auto')"
 
 
@@ -38,15 +46,25 @@ def as_tensor(x, device="cuda"):
 
 
 def _check_engine(cfg: PrecisionConfig) -> None:
-    if cfg.engine == "tree":
-        raise NotImplementedError(f"engine='tree' is {TREE_ENGINE_ITEM}")
     if cfg.engine == "auto":
         raise NotImplementedError(f"engine='auto' is {AUTO_ENGINE_ITEM}")
 
 
+def _potrf(a_padded, cfg: PrecisionConfig):
+    if cfg.engine == "blocked":
+        return blocked_potrf(a_padded, cfg)
+    return tree_potrf(a_padded, cfg)
+
+
+def _trsm_left(b, l, cfg: PrecisionConfig, *, trans, linvs=None):
+    if cfg.engine == "blocked":
+        return blocked_trsm_left(b, l, cfg, trans=trans, linvs=linvs)
+    return tree_trsm_left(b, l, cfg, trans=trans)
+
+
 def cholesky(a, cfg: PrecisionConfig | None = None, *, device="cuda"):
-    """Lower Cholesky factor via the blocked mixed-precision engine;
-    any n (identity-style padding to the leaf size inside)."""
+    """Lower Cholesky factor via the mixed-precision engine selected by
+    ``cfg.engine``; any n (padding to the leaf size inside)."""
     cfg = cfg or PrecisionConfig()
     a = as_tensor(a, device)
     n = a.shape[-1]
@@ -60,7 +78,7 @@ def cholesky_padded(a, cfg: PrecisionConfig | None = None, *,
     cfg = cfg or PrecisionConfig()
     _check_engine(cfg)
     a_p, _ = pad_spd(as_tensor(a, device), cfg.leaf)
-    return blocked_potrf(a_p, cfg)
+    return _potrf(a_p, cfg)
 
 
 def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
@@ -69,7 +87,8 @@ def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
 
     ``b`` may be (n,) or (n, k). ``l`` reuses a factor, tight (n, n) or
     leaf-padded; ``linvs`` reuses its diagonal-tile inverses
-    (:func:`~repro_torch.core.blocked.diag_tri_inv`).
+    (:func:`~repro_torch.core.blocked.diag_tri_inv`; the blocked engine
+    only, the tree engine ignores them).
 
     ``refine`` (int sweep count or
     :class:`~repro_torch.core.refine.RefineConfig`) runs mixed-precision
@@ -98,19 +117,18 @@ def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
     else:
         bp = torch.zeros((npad, b.shape[1]), dtype=b.dtype, device=b.device)
         bp[:n] = b
-    if linvs is None:
-        linvs = diag_tri_inv(lp, cfg)
-    else:
-        linvs = as_tensor(linvs, device)
-    y = blocked_trsm_left(bp, lp, cfg, trans=False, linvs=linvs)
-    x = blocked_trsm_left(y, lp, cfg, trans=True, linvs=linvs)[:n]
+    if cfg.engine == "blocked":
+        linvs = (diag_tri_inv(lp, cfg) if linvs is None
+                 else as_tensor(linvs, device))
+    y = _trsm_left(bp, lp, cfg, trans=False, linvs=linvs)
+    x = _trsm_left(y, lp, cfg, trans=True, linvs=linvs)[:n]
     return x[:, 0] if vec else x
 
 
 def solve_factored(l, b, cfg: PrecisionConfig | None = None, *, linvs=None,
                    device="cuda"):
     """Two triangular solves with an existing factor (``linvs`` reuses
-    cached diagonal-tile inverses)."""
+    cached diagonal-tile inverses, blocked engine)."""
     return cholesky_solve(None, b, cfg, l=l, linvs=linvs, device=device)
 
 

@@ -8,6 +8,9 @@ Modules:
   qgemm.py  — mixed-precision GEMM (csrc/qgemm.cu)
   panel.py  — fused panel update of the blocked engine (csrc/panel.cu)
   residual.py — fused refinement residual b - A x (csrc/residual.cu)
+  trsm.py   — the tree engine's leaf solve B L^-T via L^-1 (csrc/trsm.cu)
+  syrk.py   — syrk_leaf, syrk_packed: lower-triangle C + A A^T
+              (csrc/syrk.cu)
   _build.py — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing: the kernels are compiled at their

@@ -26,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,3 +104,16 @@ def check(err: int, what: str) -> None:
     """Raise if a launch was refused (bad configuration, no device...)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def scalar_arg(x, device, what):
+    """``(device pointer or None, host value)`` of a scale or beta: a
+    Python number goes by value, a one-element f32 tensor on ``device``
+    by its address, for the kernel to read on the card (no host sync)."""
+    if not torch.is_tensor(x):
+        return None, float(x)
+    if x.numel() != 1 or x.dtype != torch.float32 or x.device != device:
+        raise TypeError(f"{what}: a tensor scalar must be one f32 on "
+                        f"{device}, got {tuple(x.shape)} {x.dtype} on "
+                        f"{x.device}")
+    return x.data_ptr(), 0.0

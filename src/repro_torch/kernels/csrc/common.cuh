@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: the per-tile rounding of the
-// precision plan, a block-wide absmax, and the tiled GEMM core used by
-// qgemm.cu and panel.cu.
+// precision plan, a block-wide absmax, the triangular tile-index decode
+// used by panel.cu and syrk.cu, and the tiled GEMM core used by qgemm.cu,
+// panel.cu and syrk.cu.
 //
 // All arithmetic is IEEE: the build passes no --use_fast_math, so `/` and
 // sqrt are correctly rounded and every rounding below matches the plain
@@ -119,6 +120,20 @@ template <typename T> __device__ __forceinline__ T qnan();
 template <> __device__ __forceinline__ float qnan<float>() { return __int_as_float(0x7fc00000); }
 template <> __device__ __forceinline__ double qnan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// ---------------------------------------------------------------------------
+// Lower-triangular grid: t -> (i, j), i >= j, t = i (i + 1) / 2 + j. The
+// square root in f64 gives a first guess and two integer loops correct it,
+// so the decode is exact for every t below 2^30, where the products stay
+// inside an int (the reference decodes in f32 with a +-1 correction).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void tri_decode(int t, int& i, int& j) {
+  int r = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+  while (r * (r + 1) / 2 > t) --r;
+  while ((r + 1) * (r + 2) / 2 <= t) ++r;
+  i = r;
+  j = t - r * (r + 1) / 2;
 }
 
 // ---------------------------------------------------------------------------

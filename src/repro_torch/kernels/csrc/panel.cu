@@ -76,15 +76,6 @@ gemm_plain(const T* A, ll sam, ll sak, const T* B, ll sbk, ll sbn, T* O, ll ldo,
     }
 }
 
-// t -> (i, j), i >= j, t = i (i + 1) / 2 + j; exact (corrected) decode.
-__device__ __forceinline__ void tri_decode(int t, int& i, int& j) {
-  int r = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-  while (r * (r + 1) / 2 > t) --r;
-  while ((r + 1) * (r + 2) / 2 <= t) ++r;
-  i = r;
-  j = t - r * (r + 1) / 2;
-}
-
 // grid (sub-blocks of a tile, lower tile pairs)
 template <typename T>
 __global__ void __launch_bounds__(G_THREADS)

@@ -1,0 +1,161 @@
+// syrk_leaf and syrk_packed: C <- beta C + scale A A^T on the lower
+// triangle of C, in place; the strict upper triangle of C is never written.
+//
+// Replaces the Pallas kernels repro/kernels/syrk.py:syrk_leaf (the tree
+// engine's diagonal leaf, core/tree.py:tree_syrk: C is one 256 x 256 f32 or
+// f64 leaf, A is (256, k) with k from 256 to 8192 at n = 16384, in the
+// level's type f32, bf16, f16, int8 or f64) and syrk.py:syrk_packed (the same
+// update over a whole (n, k) operand on a triangular tile grid).
+//
+// Bound: n^2 k flops on the CUDA cores (f32 accumulation keeps f32 data IEEE
+// and sums bf16/f16 products exactly; int8 is summed exactly in s32; f64 in
+// f64) against n k + 2 n^2 elements moved: arithmetic bounds every shape
+// with k > 64. The TPU kernel holds the whole 256 x 256 f32 accumulator in
+// VMEM and grids over k in sequence. Here a leaf is 10 lower 64 x 64 blocks
+// (tri_decode of common.cuh), which would leave 122 of 132 SMs idle, so
+// syrk_leaf also splits k across blocks:
+//   pass 1 (syrk_tiles, grid lower blocks x k-chunks): each CTA sums one
+//          64 x 64 block over one k-chunk (the GEMM core of common.cuh) and
+//          writes its partial sums to scratch P;
+//   pass 2 (syrk_reduce, grid lower blocks): each element adds its chunks'
+//          partial sums in chunk order, then the epilogue beta C + scale S.
+// No atomics: the order of every sum is fixed by (n, k) alone, so a factor
+// is bitwise the same from run to run. With one chunk (k small, or
+// syrk_packed, whose n >> 64 grid already fills the card) pass 1 applies the
+// epilogue itself. Ragged n and k are masked. `scale` and `beta` come from
+// the host, or each from an f32 in device memory when its pointer is not
+// null (the tree engine's scales are products of per-block quantization
+// scales computed on the card; reading them there spares a device-to-host
+// sync per call, as the TPU kernel reads them from an SMEM block).
+//
+// Each diagonal block keeps C's values above the diagonal; blocks above the
+// block diagonal are not in the grid. The epilogue is in C's type (f32, or
+// f64 when C or A is f64), as repro_torch/kernels/ref.py:syrk_ref computes.
+#include "common.cuh"
+
+// Accumulator: f32 for f32/f16/bf16 A, s32 for int8 A, f64 if C or A is f64.
+template <typename Ta, typename Tc> struct SyrkAcc { typedef typename AccOf<Ta>::type type; };
+template <> struct SyrkAcc<float, double> { typedef double type; };
+
+template <typename T> __device__ __forceinline__ T load_scalar(const float* p, double h) {
+  return p ? (T)*p : (T)h;
+}
+
+template <typename Tacc, typename Tc>
+__device__ __forceinline__ void syrk_store(Tc* C, ll ldc, int n, int gm, int gn, Tacc s,
+                                           Tc scale, Tc beta) {
+  if (gm < n && gn <= gm) {
+    Tc* p = C + (ll)gm * ldc + gn;
+    *p = beta * *p + scale * (Tc)s;
+  }
+}
+
+// grid (lower 64 x 64 blocks, k-chunks of kc)
+template <typename Ta, typename Tacc, typename Tc, bool SPLIT>
+__global__ void __launch_bounds__(G_THREADS)
+syrk_tiles(const Ta* __restrict__ A, ll lda, Tc* C, ll ldc, Tacc* P, int n, int K, int kc,
+           const float* sdev, double sh, const float* bdev, double bh) {
+  int bi, bj;
+  tri_decode(blockIdx.x, bi, bj);
+  const int m0 = bi * GB_M, n0 = bj * GB_N;
+  const int k0 = blockIdx.y * kc, klen = min(kc, K - k0);
+  Tacc acc[4][4];
+  // rows m0.. of A times (rows n0.. of A)^T over columns k0 .. k0 + klen
+  gemm_block<Ta, Tacc>(acc, A + k0, lda, 1, A + k0, 1, lda, n, n, klen, m0, n0);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  if (SPLIT) {
+    Tacc* p = P + ((ll)blockIdx.y * gridDim.x + blockIdx.x) * (GB_M * GB_N);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) p[(ty + 16 * r) * GB_N + tx + 16 * c] = acc[r][c];
+    return;
+  }
+  const Tc scale = load_scalar<Tc>(sdev, sh), beta = load_scalar<Tc>(bdev, bh);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      syrk_store(C, ldc, n, m0 + ty + 16 * r, n0 + tx + 16 * c, acc[r][c], scale, beta);
+}
+
+// grid (lower 64 x 64 blocks): P[s][t] summed over s = 0 .. S-1 in order
+template <typename Tacc, typename Tc>
+__global__ void __launch_bounds__(G_THREADS)
+syrk_reduce(const Tacc* __restrict__ P, int S, Tc* C, ll ldc, int n, const float* sdev,
+            double sh, const float* bdev, double bh) {
+  int bi, bj;
+  tri_decode(blockIdx.x, bi, bj);
+  const int ntri = gridDim.x;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const Tc scale = load_scalar<Tc>(sdev, sh), beta = load_scalar<Tc>(bdev, bh);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int e = (ty + 16 * r) * GB_N + tx + 16 * c;
+      Tacc s = P[(ll)blockIdx.x * (GB_M * GB_N) + e];
+      for (int q = 1; q < S; ++q) s += P[((ll)q * ntri + blockIdx.x) * (GB_M * GB_N) + e];
+      syrk_store(C, ldc, n, bi * GB_M + ty + 16 * r, bj * GB_N + tx + 16 * c, s, scale, beta);
+    }
+}
+
+// kc: the k-chunk of each pass-1 block; kc >= K means one pass.
+template <typename Ta, typename Tc>
+static int launch(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K, int kc,
+                  const void* sdev, double sh, const void* bdev, double bh, void* stream_) {
+  typedef typename SyrkAcc<Ta, Tc>::type Tacc;
+  if (n <= 0 || K < 0 || kc <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const int nt = (n + GB_M - 1) / GB_M, ntri = nt * (nt + 1) / 2;
+  const int S = K > kc ? (K + kc - 1) / kc : 1;
+  const float* s = (const float*)sdev;
+  const float* b = (const float*)bdev;
+  if (S == 1) {
+    syrk_tiles<Ta, Tacc, Tc, false><<<dim3(ntri, 1), G_THREADS, 0, stream>>>(
+        (const Ta*)A, lda, (Tc*)C, ldc, nullptr, n, K, K, s, sh, b, bh);
+  } else {
+    if (!P) return (int)cudaErrorInvalidValue;
+    syrk_tiles<Ta, Tacc, Tc, true><<<dim3(ntri, S), G_THREADS, 0, stream>>>(
+        (const Ta*)A, lda, (Tc*)C, ldc, (Tacc*)P, n, K, kc, s, sh, b, bh);
+    syrk_reduce<Tacc, Tc><<<ntri, G_THREADS, 0, stream>>>((const Tacc*)P, S, (Tc*)C, ldc, n,
+                                                          s, sh, b, bh);
+  }
+  RETURN_LAUNCH_STATUS();
+}
+
+// syrk_leaf_*: k split in chunks of kc (pass 1 + pass 2);
+// syrk_packed_*: one pass over all of k.
+#define SYRK_ENTRIES(SFX, TA, TC)                                                         \
+  extern "C" int syrk_leaf_##SFX(const void* A, ll lda, void* C, ll ldc, void* P, int n, \
+                                 int K, int kc, const void* sdev, double sh,              \
+                                 const void* bdev, double bh, void* stream) {             \
+    return launch<TA, TC>(A, lda, C, ldc, P, n, K, kc, sdev, sh, bdev, bh, stream);       \
+  }                                                                                       \
+  extern "C" int syrk_packed_##SFX(const void* A, ll lda, void* C, ll ldc, int n, int K, \
+                                   const void* sdev, double sh, const void* bdev,         \
+                                   double bh, void* stream) {                             \
+    return launch<TA, TC>(A, lda, C, ldc, nullptr, n, K, K > 0 ? K : 1, sdev, sh, bdev,  \
+                          bh, stream);                                                    \
+  }
+
+SYRK_ENTRIES(f32, float, float)
+SYRK_ENTRIES(bf16, __nv_bfloat16, float)
+SYRK_ENTRIES(f16, __half, float)
+SYRK_ENTRIES(s8, int8_t, float)
+SYRK_ENTRIES(f32_f64, float, double)
+SYRK_ENTRIES(f64, double, double)
+
+// The decode the kernels run, for a check against integer arithmetic on the
+// host: I[t], J[t] for t < count.
+__global__ void tri_decode_kernel(int* I, int* J, int count) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < count) tri_decode(t, I[t], J[t]);
+}
+
+extern "C" int tri_decode_check(void* I, void* J, int count, void* stream) {
+  if (count <= 0) return (int)cudaErrorInvalidValue;
+  tri_decode_kernel<<<(count + 255) / 256, 256, 0, (cudaStream_t)stream>>>((int*)I, (int*)J,
+                                                                           count);
+  RETURN_LAUNCH_STATUS();
+}

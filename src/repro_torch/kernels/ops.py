@@ -1,7 +1,7 @@
 """Kernel dispatch by device, with one launch counter per kernel.
 
 Counterpart of ``repro/kernels/ops.py`` for the factor, solve and
-refinement path.
+refinement path of both engines.
 The dispatch rule has no switch: a tensor on the CPU runs the plain
 version in :mod:`repro_torch.kernels.ref`; a tensor on a CUDA device
 launches the hand-written kernel, for f32 and f64 alike (the card has
@@ -10,9 +10,14 @@ version by dtype). Any other device raises, and so does a dtype or a
 layout the kernel does not take. There is no fallback.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper: one call that
-launches a kernel adds one (``panel_update`` adds one per call although
-it runs several CUDA kernels). Calls that run the plain version on the
-CPU add nothing.
+launches a kernel adds one (``panel_update`` and a split ``syrk_leaf``
+add one per call although they run several CUDA kernels; ``trsm``
+without ``linv`` adds one ``tri_inv_leaf`` and one ``trsm_leaf`` or
+``qgemm``). Calls that run the plain version on the CPU add nothing.
+
+A scale or beta may be a 0-d f32 tensor on the operands' device (the
+per-block quantization scales of the tree engine): the kernels read it
+from device memory, so no call waits for the card.
 """
 from __future__ import annotations
 
@@ -23,9 +28,12 @@ from repro_torch.kernels import potrf as _potrf
 from repro_torch.kernels import qgemm as _qgemm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import residual as _residual
+from repro_torch.kernels import syrk as _syrk
+from repro_torch.kernels import trsm as _trsm
 
 LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
-            "panel_update": 0, "residual_fused": 0}
+            "panel_update": 0, "residual_fused": 0, "trsm_leaf": 0,
+            "syrk_leaf": 0, "syrk_packed": 0}
 
 
 def reset_launches() -> None:
@@ -34,8 +42,9 @@ def reset_launches() -> None:
 
 
 def _on_card(*xs) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raise otherwise."""
-    kinds = {x.device.type for x in xs if x is not None}
+    """True for CUDA tensors, False for CPU tensors; raise otherwise.
+    Arguments that are not tensors (None, a float scale) are ignored."""
+    kinds = {x.device.type for x in xs if torch.is_tensor(x)}
     if kinds == {"cpu"}:
         return False
     if kinds == {"cuda"}:
@@ -71,12 +80,52 @@ def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
           out_dtype=torch.float32, out=None):
     """``scale * (a @ b[.T]) + beta * c`` with wide accumulation. ``out``
     may be the very tensor ``c`` (an in-place update), never ``a``/``b``."""
-    if _on_card(a, b, c, out):
+    if _on_card(a, b, c, out, scale):
         LAUNCHES["qgemm"] += 1
         return _qgemm.qgemm(a, b, scale, c=c, beta=beta, trans_b=trans_b,
                             out_dtype=out_dtype, out=out)
     return _store(_ref.qgemm_ref(a, b, trans_b=trans_b, scale=scale, c=c,
                                  beta=beta, out_dtype=out_dtype), out)
+
+
+def trsm(b, l, *, side="right", trans=True, linv=None):
+    """Leaf triangular solve against lower-triangular ``l``:
+    ``B L^-T`` (right, trans), ``L^-1 B`` (left) or ``L^-T B`` (left,
+    trans), as ``repro/kernels/ops.py:trsm`` dispatches it. On the card
+    the leaf is inverted (``tri_inv_leaf``) unless ``linv`` is given, and
+    the solve is a product with the inverse: ``trsm_leaf`` for the right
+    form, ``qgemm`` for the left ones. On the CPU without ``linv`` it is
+    a triangular solve (:func:`~repro_torch.kernels.ref.trsm_ref`)."""
+    card = _on_card(b, l, linv)
+    if not card and linv is None:
+        return _ref.trsm_ref(b, l, side=side, trans=trans)
+    if side == "right" and trans:
+        if not card:
+            return _ref.qgemm_ref(b, linv, trans_b=True, out_dtype=b.dtype)
+        if linv is None:
+            linv = tri_inv(l)
+        LAUNCHES["trsm_leaf"] += 1
+        return _trsm.trsm_leaf(b, linv)
+    if side != "left":
+        raise NotImplementedError(f"trsm side={side} trans={trans}")
+    if linv is None:
+        linv = tri_inv(l)
+    return qgemm((linv.T if trans else linv).to(b.dtype), b,
+                 out_dtype=b.dtype)
+
+
+def syrk(c, a, scale=1.0, beta=1.0, *, packed=False, out=None):
+    """Lower triangle of ``beta c + scale a a^T``, ``c``'s strict upper
+    triangle kept: ``syrk_leaf`` (k split across thread blocks) or, with
+    ``packed``, ``syrk_packed`` (one pass, any n). ``out`` may be ``c``
+    itself for an in-place update."""
+    if _on_card(c, a, out, scale, beta):
+        name = "syrk_packed" if packed else "syrk_leaf"
+        LAUNCHES[name] += 1
+        fn = _syrk.syrk_packed if packed else _syrk.syrk_leaf
+        return fn(c, a, scale, beta, out=out)
+    return _store(_ref.syrk_ref(c, a, alpha=1.0, beta=beta, scale=scale),
+                  out)
 
 
 def residual(a, x, b):

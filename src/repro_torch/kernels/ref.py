@@ -2,17 +2,19 @@
 
 Counterpart of ``repro/kernels/ref.py`` for the kernels of the factor,
 solve and refinement path (``qgemm``, ``potrf_leaf``, ``tri_inv_leaf``,
-``panel_update``, ``residual_fused``). They are what
+``panel_update``, ``residual_fused``) and of the tree engine
+(``trsm_leaf``, ``syrk_leaf``, ``syrk_packed``). They are what
 :mod:`repro_torch.kernels.ops` runs for a tensor on the CPU, and what the
 CUDA kernels are held against on the card. Each follows the reference's
 arithmetic step for step: the same casts, the same per-tile absmax and the
 same order of roundings.
 
-The products with right-hand sides (``qgemm_ref``, ``residual_ref``) run
-column by column (:func:`_matmul_cols`): torch's CPU GEMM picks another
-kernel, and so another summation order, below 12 columns, and a column's
-refinement trajectory must not depend on how many columns share its block
-(``core/refine.py``, the continuous == window contract).
+The products with right-hand sides (``qgemm_ref``, ``residual_ref``) and
+the left triangular solves (``trsm_ref``) run column by column
+(:func:`_matmul_cols`, :func:`_solve_cols`): torch's CPU GEMM picks
+another kernel, and so another summation order, below 12 columns, and a
+column's refinement trajectory must not depend on how many columns share
+its block (``core/refine.py``, the continuous == window contract).
 """
 from __future__ import annotations
 
@@ -89,6 +91,56 @@ def tri_inv_ref(l):
     eye = torch.eye(l.shape[-1], dtype=cd, device=l.device)
     out = torch.linalg.solve_triangular(l.to(cd), eye, upper=False)
     return out.to(l.dtype)
+
+
+def _solve_cols(l, b, *, trans: bool):
+    """``L^-1 B`` (or ``L^-T B``) one column of ``b`` at a time, for the
+    same reason as :func:`_matmul_cols`."""
+    lt = l.T if trans else l
+    return torch.cat([torch.linalg.solve_triangular(
+        lt, b[:, j:j + 1].contiguous(), upper=trans)
+        for j in range(b.shape[1])], dim=1)
+
+
+def trsm_ref(b, l, *, side="right", trans=True):
+    """Triangular solve against a lower-triangular ``l``:
+
+    side=right, trans=True  : X = B L^{-T}   (the paper's Alg. 2 form)
+    side=left,  trans=False : X = L^{-1} B
+    side=left,  trans=True  : X = L^{-T} B
+
+    Narrow dtypes solve in f32. The left forms (the tree engine's solve
+    sweeps) solve one column at a time.
+    """
+    cd = _compute_dtype(b.dtype)
+    bc, lc = b.to(cd), l.to(cd)
+    if side == "right" and trans:
+        y = torch.linalg.solve_triangular(lc, bc.T, upper=False)
+        return y.T.to(b.dtype)
+    if side == "left":
+        return _solve_cols(lc, bc, trans=trans).to(b.dtype)
+    raise NotImplementedError(f"trsm side={side} trans={trans}")
+
+
+def syrk_ref(c, a, *, alpha=1.0, beta=1.0, scale=1.0):
+    """SYRK: lower(C) <- beta*C + alpha*scale*(A A^T); the strict upper
+    triangle keeps C's values. ``scale`` (a float or a 0-d tensor) carries
+    the dequantization factor when A is quantized. int8 is widened (through
+    bf16, as the reference does: exact for |v| <= 127) and every product
+    is summed in f32 (f64 if C or A is f64); a narrow matmul in torch would
+    round its result to the narrow type."""
+    if not a.dtype.is_floating_point:
+        a = a.to(torch.bfloat16)
+    ad = _acc_dtype(c, a)
+    aw = a.to(ad)
+    acc = aw @ aw.T
+    dev = c.device
+    upd = (torch.as_tensor(beta, dtype=ad, device=dev) * c.to(ad)
+           + torch.as_tensor(alpha, dtype=ad, device=dev)
+           * torch.as_tensor(scale, dtype=ad, device=dev) * acc)
+    n = c.shape[-1]
+    lower = torch.ones((n, n), dtype=torch.bool, device=dev).tril()
+    return torch.where(lower, upd, c.to(ad)).to(c.dtype)
 
 
 def _round_tiles(x, name, quant, b):

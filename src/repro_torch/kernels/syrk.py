@@ -1,0 +1,144 @@
+"""Wrappers of the SYRK CUDA kernels (``csrc/syrk.cu``).
+
+``syrk_leaf`` replaces ``repro/kernels/syrk.py:syrk_leaf`` (the tree
+engine's diagonal leaf) and ``syrk_packed`` replaces
+``repro/kernels/syrk.py:syrk_packed`` (the whole lower triangle on a
+triangular tile grid). Both compute ``C <- beta C + scale A A^T`` on the
+lower triangle of ``C`` (f32 or f64) for ``A`` in f32, bf16, f16, int8
+(summed exactly in s32) or f64, and keep ``C``'s strict upper triangle as
+it was; their plain version is
+:func:`repro_torch.kernels.ref.syrk_ref`. ``syrk_leaf`` splits k across
+thread blocks in chunks fixed by the shape (:func:`leaf_chunk`), so its
+sums are the same from run to run.
+
+``scale`` and ``beta`` may be Python numbers or 0-d f32 tensors on the
+card; a tensor is read by the kernel from device memory, so the per-block
+quantization scales of the tree engine never cross to the host.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: (A dtype, C dtype) -> kernel suffix
+_SUFFIX = {(torch.float32, torch.float32): "f32",
+           (torch.bfloat16, torch.float32): "bf16",
+           (torch.float16, torch.float32): "f16",
+           (torch.int8, torch.float32): "s8",
+           (torch.float32, torch.float64): "f32_f64",
+           (torch.float64, torch.float64): "f64"}
+_FNS: dict = {}
+_P, _L, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_double)
+_LEAF_ARGS = (_P, _L, _P, _L, _P, _I, _I, _I, _P, _D, _P, _D, _P)
+_PACKED_ARGS = (_P, _L, _P, _L, _I, _I, _P, _D, _P, _D, _P)
+#: 64 x 64 output blocks (csrc/common.cuh: GB_M, GB_N)
+_BLOCK = 64
+#: about this many pass-1 thread blocks for a split syrk_leaf (two waves
+#: of the H100's 132 SMs)
+_TARGET_CTAS = 320
+#: the shortest k-chunk a split may make
+_MIN_CHUNK = 256
+
+
+def _fn(kind, key):
+    if (kind, key) not in _FNS:
+        _FNS[(kind, key)] = _build.function(
+            "syrk", f"syrk_{kind}_{_SUFFIX[key]}",
+            _LEAF_ARGS if kind == "leaf" else _PACKED_ARGS)
+    return _FNS[(kind, key)]
+
+
+def leaf_chunk(n: int, k: int) -> tuple[int, int]:
+    """``(kc, chunks)``: the k-chunk of syrk_leaf's first pass and their
+    number, from the shape alone: about ``_TARGET_CTAS`` thread blocks,
+    at most ``ceil(k / _MIN_CHUNK)`` chunks, each a multiple of 16."""
+    nt = _cdiv(n, _BLOCK)
+    s = max(1, min(_cdiv(k, _MIN_CHUNK), _TARGET_CTAS // (nt * (nt + 1) // 2)))
+    kc = max(16, _cdiv(_cdiv(k, s), 16) * 16)
+    return kc, _cdiv(k, kc) if k > kc else 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _prepare(c, a, out, scale, beta, what):
+    dev = c.device
+    if dev.type != "cuda" or a.device != dev:
+        raise ValueError(f"{what}: needs CUDA operands on one device, got "
+                         f"{c.device}, {a.device}")
+    key = (a.dtype, c.dtype)
+    if key not in _SUFFIX:
+        raise TypeError(f"{what}: A {a.dtype} with C {c.dtype}")
+    n = c.shape[-1]
+    if c.shape != (n, n) or a.dim() != 2 or a.shape[0] != n:
+        raise ValueError(f"{what}: shapes c {tuple(c.shape)}, a "
+                         f"{tuple(a.shape)}")
+    if out is None:
+        out = c.clone()
+    elif out is not c:
+        if out.shape != c.shape or out.dtype != c.dtype or out.device != dev:
+            raise ValueError(f"{what}: bad out {tuple(out.shape)}")
+        out.copy_(c)
+    if a.stride(1) != 1 or out.stride(1) != 1:
+        raise ValueError(f"{what}: a and out need unit column stride")
+    return (key, out, _build.scalar_arg(scale, dev, what),
+            _build.scalar_arg(beta, dev, what))
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def syrk_leaf(c, a, scale=1.0, beta=1.0, *, out=None):
+    """Lower triangle of ``beta c + scale a a^T`` over ``c``'s upper
+    triangle, into ``out`` (a copy of ``c`` unless given; ``out`` may be
+    ``c`` itself)."""
+    key, out, (sp, sh), (bp, bh) = _prepare(c, a, out, scale, beta,
+                                            "syrk_leaf")
+    n, k = a.shape
+    kc, chunks = leaf_chunk(n, k)
+    part = None
+    if chunks > 1:
+        acc = {torch.int8: torch.int32, torch.float64: torch.float64}.get(
+            a.dtype, torch.float64 if c.dtype == torch.float64
+            else torch.float32)
+        nt = _cdiv(n, _BLOCK)
+        part = torch.empty((chunks, nt * (nt + 1) // 2, _BLOCK, _BLOCK),
+                           dtype=acc, device=c.device)
+    with torch.cuda.device(c.device):
+        err = _fn("leaf", key)(
+            a.data_ptr(), a.stride(0), out.data_ptr(), out.stride(0),
+            None if part is None else part.data_ptr(), n, k, kc, sp, sh,
+            bp, bh, _stream(c.device))
+    _build.check(err, "syrk_leaf")
+    return out
+
+
+def syrk_packed(c, a, scale=1.0, beta=1.0, *, out=None):
+    """As :func:`syrk_leaf`, in one pass over all of k, for any (n, k)."""
+    key, out, (sp, sh), (bp, bh) = _prepare(c, a, out, scale, beta,
+                                            "syrk_packed")
+    n, k = a.shape
+    with torch.cuda.device(c.device):
+        err = _fn("packed", key)(
+            a.data_ptr(), a.stride(0), out.data_ptr(), out.stride(0), n, k,
+            sp, sh, bp, bh, _stream(c.device))
+    _build.check(err, "syrk_packed")
+    return out
+
+
+def tri_decode(count: int, device="cuda"):
+    """``(i, j)`` int32 tensors of the lower-triangular decode the kernels
+    run (``csrc/common.cuh:tri_decode``) for t = 0 .. count - 1."""
+    i = torch.empty(count, dtype=torch.int32, device=device)
+    j = torch.empty(count, dtype=torch.int32, device=device)
+    fn = _build.function("syrk", "tri_decode_check", (_P, _P, _I, _P))
+    with torch.cuda.device(i.device):
+        err = fn(i.data_ptr(), j.data_ptr(), count, _stream(i.device))
+    _build.check(err, "tri_decode")
+    return i, j

@@ -180,9 +180,12 @@ class SolverEngine:
     def _factorize(self, a):
         """Leaf-padded factor + the blocked engine's diagonal-tile
         inverses, so every refinement sweep's pair of triangular solves
-        reuses the one-off leaf inversions."""
+        reuses the one-off leaf inversions (None for the tree engine,
+        whose solves invert their leaves, as in the reference)."""
         l = cholesky_padded(a, self.cfg, device=self.device)
-        return l, diag_tri_inv(l, self.cfg)
+        linvs = (diag_tri_inv(l, self.cfg)
+                 if self.cfg.engine == "blocked" else None)
+        return l, linvs
 
     def factor(self, a, cache_key=None, *, fingerprint=None):
         """Factorize (or fetch the cached factor for) ``a``; returns

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.plan import build_plan
 from repro_torch.core.precision import PrecisionConfig
-from repro_torch.kernels import ops, panel, potrf, qgemm, residual
+from repro_torch.kernels import (ops, panel, potrf, qgemm, residual, syrk,
+                                  trsm)
 from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(2)
@@ -248,11 +249,130 @@ def test_plain_products_are_column_independent():
     assert torch.equal(ops.residual(a, x[:, 5], b[:, 5]), full[:, 5])
 
 
+# ---------------------------------------------------------------------------
+# trsm / syrk, the tree engine's leaves (tests/test_kernels.py:176-228)
+# ---------------------------------------------------------------------------
+_TRSM_SHAPES = [(128, 128), (700, 256), (1024, 128), (65, 384)]
+_SYRK_SHAPES = [(128, 128), (256, 1000), (256, 64)]
+_PACKED_SHAPES = [(512, 256), (640, 300), (500, 513)]
+
+
+def _tri(rng, n):
+    """A well-conditioned lower-triangular leaf (tests/test_kernels.py)."""
+    return (np.tril(_rand(rng, (n, n)))
+            + 4 * np.sqrt(n) * np.eye(n, dtype=np.float32))
+
+
+@pytest.mark.parametrize("m,n", _TRSM_SHAPES)
+def test_trsm_ref_right(jx, m, n):
+    rng = np.random.default_rng(m + n)
+    l, b = _tri(rng, n), _rand(rng, (m, n))
+    want = jx.ref.trsm_ref(jx.jnp.asarray(b), jx.jnp.asarray(l))
+    got = ops.trsm(torch.from_numpy(b), torch.from_numpy(l))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_trsm_ref_left(jx, trans):
+    rng = np.random.default_rng(11)
+    l, b = _tri(rng, 256), _rand(rng, (256, 192))
+    want = jx.ref.trsm_ref(jx.jnp.asarray(b), jx.jnp.asarray(l),
+                           side="left", trans=trans)
+    got = ops.trsm(torch.from_numpy(b), torch.from_numpy(l), side="left",
+                   trans=trans)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    # with a given inverse: the product the card runs, as the reference's
+    # jnp path computes it
+    linv = ops.tri_inv(torch.from_numpy(l))
+    via = ops.trsm(torch.from_numpy(b), None, side="left", trans=trans,
+                   linv=linv)
+    np.testing.assert_allclose(via.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_trsm_ref_left_is_column_independent():
+    """The left forms (the tree engine's solve sweeps on the CPU) give a
+    column the same bits whatever columns share its block."""
+    rng = np.random.default_rng(12)
+    l = torch.from_numpy(_tri(rng, 256))
+    b = torch.from_numpy(_rand(rng, (256, 16)))
+    for trans in (False, True):
+        full = ops.trsm(b, l, side="left", trans=trans)
+        for cols in ([3], [3, 0], [15, 3, 7], list(range(2, 13))):
+            got = ops.trsm(b[:, cols], l, side="left", trans=trans)
+            assert torch.equal(got, full[:, cols]), (trans, cols)
+
+
+@pytest.mark.parametrize("n,k", _SYRK_SHAPES)
+@pytest.mark.parametrize("scale,beta", [(1.0, 1.0), (0.5, -0.25)])
+def test_syrk_ref(jx, n, k, scale, beta):
+    rng = np.random.default_rng(n + k)
+    c, a = _rand(rng, (n, n)), _rand(rng, (n, k))
+    want = np.asarray(jx.ref.syrk_ref(jx.jnp.asarray(c), jx.jnp.asarray(a),
+                                      scale=scale, beta=beta))
+    for packed in (False, True):
+        got = ops.syrk(torch.from_numpy(c), torch.from_numpy(a), scale, beta,
+                       packed=packed)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+        iu = np.triu_indices(n, 1)
+        np.testing.assert_array_equal(got.numpy()[iu], c[iu])
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f16", "int8"])
+def test_syrk_ref_narrow_operands(jx, dt):
+    """Narrow A: every product is exact in f32 and summed in f32 (int8
+    through bf16, exact), with a 0-d tensor scale; the two packages sum
+    in other orders, so they agree to f32 roundoff of the sums."""
+    rng = np.random.default_rng(13)
+    n, k = 256, 700
+    c = _rand(rng, (n, n))
+    if dt == "int8":
+        a = rng.integers(-127, 128, (n, k)).astype(np.int8)
+        aj, at = jx.jnp.asarray(a), torch.from_numpy(a)
+    else:
+        a = _rand(rng, (n, k))
+        aj = jx.jnp.asarray(a, jx.dt[dt])
+        at = torch.from_numpy(a).to(_TD[dt])
+    scale = np.float32(0.37)
+    want = np.asarray(jx.ref.syrk_ref(jx.jnp.asarray(c), aj,
+                                      scale=jx.jnp.asarray(scale), beta=0.5))
+    got = ops.syrk(torch.from_numpy(c), at, torch.tensor(scale), 0.5)
+    assert got.dtype == torch.float32
+    atol = 2 * k * 2.0 ** -24 * float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+
+
+def test_reference_interpret_kernels_match_port(jx):
+    """One case each of the reference's Pallas trsm_leaf, syrk_leaf and
+    syrk_packed in interpret mode (what the TPU kernels compute) against
+    the port's dispatch on the CPU."""
+    from repro.kernels import ops as rops
+    rng = np.random.default_rng(14)
+    l, b = _tri(rng, 256), _rand(rng, (700, 256))
+    want = rops.trsm(b, l, impl="interpret")
+    got = ops.trsm(torch.from_numpy(b), torch.from_numpy(l))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    for packed, (n, k) in ((False, (256, 1000)), (True, (500, 513))):
+        c, a = _rand(rng, (n, n)), _rand(rng, (n, k))
+        want = rops.syrk(c, a, 0.7, 0.9, packed=packed, impl="interpret")
+        got = ops.syrk(torch.from_numpy(c), torch.from_numpy(a), 0.7, 0.9,
+                       packed=packed)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-3)
+
+
 def test_cpu_calls_count_no_launch():
     ops.reset_launches()
     ops.potrf(torch.eye(128))
     ops.qgemm(torch.eye(64), torch.eye(64))
     ops.residual(torch.eye(64), torch.ones(64), torch.ones(64))
+    ops.trsm(torch.ones(64, 128), torch.eye(128))
+    ops.trsm(torch.ones(128, 3), torch.eye(128), side="left")
+    ops.syrk(torch.eye(128), torch.ones(128, 64), torch.tensor(0.5), 1.0)
+    ops.syrk(torch.eye(100), torch.ones(100, 7), packed=True)
     assert set(ops.LAUNCHES.values()) == {0}
 
 
@@ -271,6 +391,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         panel.panel_update(torch.from_numpy(linv), torch.from_numpy(a21),
                            torch.from_numpy(c), **kw)
+    with pytest.raises(ValueError):
+        trsm.trsm_leaf(torch.ones(64, 128), torch.eye(128))
+    for fn in (syrk.syrk_leaf, syrk.syrk_packed):
+        with pytest.raises(ValueError):
+            fn(torch.eye(128), torch.ones(128, 64))
 
 
 def test_ops_refuses_other_devices():
@@ -374,3 +499,119 @@ def test_residual_kernel_columns_bitwise(card, dt):
     inplace = b.clone()
     residual.residual_fused(a_view, x, inplace, out=inplace)
     assert torch.equal(inplace, full)
+
+
+def _syrk_atol(c, a, scale, beta):
+    """A bound on |kernel - plain| for two sums of k products in other
+    orders: each is within k u sum|a_i a_j| of the exact sum (plus one
+    rounding of beta c), and sum|a_i a_j| <= max_i (A A^T)_ii (Cauchy-
+    Schwarz). u is the accumulator's unit roundoff; the int8 kernel sums
+    exactly in s32, so its whole difference is the plain version's."""
+    wide = torch.float64 in (c.dtype, a.dtype)
+    u = 2.0 ** -53 if wide else 2.0 ** -24
+    aw = a.to(torch.float64)
+    diag = float((aw * aw).sum(dim=1).max())
+    k = a.shape[1]
+    return 2 * (k + 2) * u * (abs(float(scale)) * diag
+                              + abs(float(beta)) * float(c.abs().max()))
+
+
+#: A's type; "f32-c64" is f32 A with an f64 C (ladder f32x3_f64)
+_SYRK_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "f16": torch.float16, "int8": torch.int8,
+               "f64": torch.float64, "f32-c64": torch.float32}
+
+
+def _syrk_operands(card, n, k, dt, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    cdt = torch.float64 if "64" in dt else torch.float32
+    c = torch.randn((n, n), generator=g, device=card, dtype=cdt)
+    if dt == "int8":
+        a = torch.randint(-127, 128, (n, k), generator=g, device=card,
+                          dtype=torch.int8)
+    else:
+        a = torch.randn((n, k), generator=g, device=card).to(_SYRK_TYPES[dt])
+    return c, a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n", _TRSM_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_trsm_leaf_kernel(card, m, n, dt):
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    rng = np.random.default_rng(m + n)
+    l = torch.from_numpy(_tri(rng, n)).to(card, dtype)
+    big = torch.from_numpy(_rand(rng, (m, n + 32))).to(card, dtype)
+    b = big[:, 16:16 + n]                  # read through its leading dim
+    # torch's triangular solve may return a column-major inverse
+    linv = tref.tri_inv_ref(l).contiguous()
+    got = trsm.trsm_leaf(b, linv)
+    want = tref.qgemm_ref(b, linv, trans_b=True, out_dtype=dtype)
+    u = 2.0 ** -24 if dt == "f32" else 2.0 ** -53
+    atol = 2 * (n + 1) * u * float((b.abs() @ linv.abs().T).max())
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    # only the lower triangle of linv is read
+    dirty = linv + torch.triu(torch.full_like(linv, 1e3), 1)
+    assert torch.equal(trsm.trsm_leaf(b, dirty), got)
+    # the dispatch: tri_inv_leaf + trsm_leaf against the solve
+    torch.testing.assert_close(ops.trsm(b, l), tref.trsm_ref(b, l),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _SYRK_SHAPES + [(256, 8192)])
+@pytest.mark.parametrize("dt", list(_SYRK_TYPES))
+def test_syrk_leaf_kernel(card, n, k, dt):
+    c, a = _syrk_operands(card, n, k, dt, n + k)
+    scale = torch.tensor(0.37, device=card)       # read on the card
+    got = syrk.syrk_leaf(c, a, scale, -0.25)
+    want = tref.syrk_ref(c, a, scale=scale, beta=-0.25)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=_syrk_atol(c, a, 0.37, -0.25))
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    # in place, and the same bits run to run (fixed split, no atomics)
+    inplace = c.clone()
+    syrk.syrk_leaf(inplace, a, scale, -0.25, out=inplace)
+    assert torch.equal(inplace, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _PACKED_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_syrk_packed_kernel(card, n, k, dt):
+    c, a = _syrk_operands(card, n, k, dt, n * k)
+    got = syrk.syrk_packed(c, a, 0.7, 0.9)
+    want = tref.syrk_ref(c, a, scale=0.7, beta=0.9)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=_syrk_atol(c, a, 0.7, 0.9))
+    assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+
+
+@pytest.mark.gpu
+def test_tri_decode_exact(card):
+    """The decode the kernels run (tests/test_kernels.py:
+    test_tri_decode_exact, for csrc/common.cuh:tri_decode)."""
+    i, j = (t.cpu().numpy().astype(np.int64)
+            for t in syrk.tri_decode(200000, card))
+    np.testing.assert_array_equal(i * (i + 1) // 2 + j, np.arange(200000))
+    assert (j <= i).all() and (j >= 0).all()
+
+
+@pytest.mark.gpu
+def test_qgemm_device_scale(card):
+    """A 0-d tensor scale is read on the card and gives the float scale's
+    bits; f32 operands with an f64 accumulator run in f64."""
+    g = torch.Generator(device=card).manual_seed(4)
+    a = torch.randn((300, 200), generator=g, device=card)
+    b = torch.randn((180, 200), generator=g, device=card)
+    c = torch.randn((300, 180), generator=g, device=card)
+    s = torch.tensor(-0.3, device=card)
+    assert torch.equal(qgemm.qgemm(a, b, s, c=c, beta=1.0, trans_b=True),
+                       qgemm.qgemm(a, b, float(s), c=c, beta=1.0,
+                                   trans_b=True))
+    c64 = c.double()
+    got = qgemm.qgemm(a, b, s, c=c64, beta=1.0, trans_b=True,
+                      out_dtype=torch.float64)
+    want = tref.qgemm_ref(a, b, trans_b=True, scale=s, c=c64, beta=1.0,
+                          out_dtype=torch.float64)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
