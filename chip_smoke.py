@@ -9,14 +9,21 @@ line; a failing check raises, and the script exits non-zero with no
 result line. Phases:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
-2. ``kernel``: each of the eight kernels against its plain PyTorch version
+2. ``kernel``: each of the nine kernels against its plain PyTorch version
    on the card, for every operand type and rounding variant, at the
    shapes of tests/test_kernels.py and at the main paths' shapes (leaf
    b = 256, the first diagonal tile of the n = 16384 matrix, panel
    heights m = 256 .. n - 256, the residual at n = 16384 with 16 columns;
    the tree engine's leaves: ``trsm_leaf`` with M = 256 and 8192,
    ``syrk_leaf`` with k = 256 and 8192 in every level type,
-   ``syrk_packed`` at n = k = 8192 and a ragged (500, 513)); times of the
+   ``syrk_packed`` at n = k = 8192 and a ragged (500, 513);
+   ``flash_attention`` at tests/test_flash.py's shapes in f32 and bf16,
+   every dense head dim 16 .. 256, S != T and a full call, and at every
+   prefill shape of phase 8: gemma-2b's 4 x 2048, 1 x 8192 and 4 x 1023
+   (H = 8, KV = 1, hd = 256, bf16) and 2 x 256 .. 263 (f32),
+   nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128),
+   and hd = 192; each case against the derived worst-case atol and a
+   data-scaled one, 256 u max|v|); times of the
    kernel, the plain version and the one PyTorch call computing the same
    function (where there is one), beside the card's least time for that
    work. ``residual_fused`` is also checked for column independence,
@@ -55,7 +62,23 @@ result line. Phases:
 7. ``breakdown``: device time by kernel inside one factor and one
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
    (torch.profiler), and the card's busy share of the wall time.
-8. ``cpu_agreement``: each ladder's factor on the card against the same
+8. ``generate``: gemma-2b at full width and depth (18 layers, bf16,
+   random weights drawn on the card from a seed) serves 4 prompts of 2048
+   tokens with 32 new tokens each, greedy, and 1 prompt of 8192 tokens
+   (its max_seq) with 8; per request batch prefill ms, decode ms per step
+   (median), tokens/s, peak GiB and the flash launches, which must equal
+   n_layers per prefill; then the reference's decode-vs-prefill contract
+   (tests/test_archs.py:55-77) at 4 x 1024 within a stated bf16
+   tolerance. ``generate_gqa``: nemotron-4-15b at full width with 2 of its
+   32 layers (the GQA path, KV = 8, G = 6, hd = 128, and the relu2 MLP),
+   1 prompt of 4096 tokens with 8 new ones, and its contract at 1 x 1024.
+   ``token_exact_f32``: gemma-2b at full width with 2 layers in f32:
+   generate equals teacher-forced greedy over 8 tokens
+   (tests/test_serve.py:14-41), and the contract at 5e-4.
+   ``model_cpu_agreement``: prefill logits of the smoke configs of
+   gemma-2b, granite-34b and nemotron-4-15b on the card against the port
+   on the CPU.
+9. ``cpu_agreement``: each ladder's factor on the card against the same
    port run on the CPU at n = 2048, both engines.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -66,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -95,6 +119,8 @@ KERNELS = {
                   "src/repro/kernels/syrk.py:68"),
     "syrk_packed": ("src/repro_torch/kernels/csrc/syrk.cu",
                     "src/repro/kernels/syrk.py:137"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash.cu",
+                        "src/repro/kernels/flash.py:75"),
 }
 #: the kernels each driven path must launch
 PATH_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
@@ -130,10 +156,12 @@ def emit(obj) -> None:
 
 
 def card_rates(name: str) -> dict:
-    """Data-sheet peaks of the card (dense, CUDA cores for f32/f64)."""
+    """Data-sheet peaks of the card (dense; CUDA cores for f32/f64, the
+    tensor cores for bf16)."""
     if "PCIe" in name:
-        return {"f32": 51e12, "f64": 25.5e12, "bytes": 2.0e12}
-    return {"f32": 67e12, "f64": 33.5e12, "bytes": 3.35e12}
+        return {"f32": 51e12, "f64": 25.5e12, "bf16": 756e12,
+                "bytes": 2.0e12}
+    return {"f32": 67e12, "f64": 33.5e12, "bf16": 989e12, "bytes": 3.35e12}
 
 
 def bound_ms(flops: float, nbytes: float, kind: str, rates: dict):
@@ -745,6 +773,143 @@ def kernel_syrk_packed(rates, gen, n):
         "bound_ms": bound, "bound_by": by, "shape": [m, k]}
 
 
+def _flash_atol(q, k, v):
+    """|kernel - plain| for one attention: the score is two f32 sums of hd
+    products in other orders (``_gamma_atol`` with Cauchy-Schwarz's
+    max|q_i| max|k_j| hd^-0.5 for the sum of |products|); a score error ds
+    moves each softmax weight by a factor within 1 +- (ds + 4u), which
+    moves the output, a convex combination of rows of v, by at most
+    2 (ds + 4u) max|v|; the sums of p v and of p over up to T terms in
+    other orders, across other block boundaries, add 2 (T + 2) u max|v|
+    each; the rescalings and the division a few units more."""
+    u = 2.0 ** -24
+    hd, T = q.shape[-1], k.shape[-3]
+    sdot = (float(q.float().norm(dim=-1).max())
+            * float(k.float().norm(dim=-1).max()) * hd ** -0.5)
+    ds = _gamma_atol(hd, u, sdot)
+    return float(v.float().abs().max()) * (2 * ds + 4 * (T + 2) * u + 16 * u)
+
+
+#: bf16 outputs: each side rounds once to bf16, up to 2^-7 of |out| apart
+_BF16_RTOL = 2.0 ** -7
+_FLASH_TOL = ("atol max|v| (2 ds + 4 (T + 2) u + 16 u), ds = 2 (hd + 2) u "
+              "max|q| max|k| hd^-0.5, u = 2^-24; bf16 adds rtol 2^-7")
+#: The derived atol is a worst case (Cauchy-Schwarz on the scores, every
+#: rounding of a T-term sum the same way) and at gemma's shape is 1e-2,
+#: while a late row's |out| is a few 1e-2: a defect confined to rows far
+#: from the diagonal could hide under it. So each case is also held to a
+#: data-scaled atol of 256 u max|v|, the typical (random-walk) growth of
+#: the same sums, sqrt(hd) + sqrt(T) <= 107 units at most here, with room
+#: over the f32 readings (under 3 u max|v| at every shape, this script
+#: on an NVIDIA H100 80GB HBM3 at 700 W). In bf16 each side rounds its
+#: f32 value to within 2^-8 of itself, and the unrounded value is within
+#: 1 / (1 - 2^-8) of the rounded |out|: rtol 2^-7 (1 + 2^-7) on top.
+_FLASH_DATA_ULPS = 256
+_FLASH_DATA_TOL = ("atol 256 u max|v|, u = 2^-24; bf16 adds rtol "
+                   "2^-7 (1 + 2^-7)")
+
+
+def _flash_case(gen, B, S, H, KV, hd, dt, T=None, causal=True, bq=256,
+                bk=256):
+    """The kernel through ops' batched form against flash_ref with the
+    reference's blocks, on [B, S, H, hd] and [B, T, KV, hd] operands."""
+    from repro_torch.kernels import flash, ref
+    T = S if T is None else T
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    got = flash.flash_attention_bshd(q, k, v, causal=causal, bk=bk)
+    want = ref.flash_ref(q, k, v, causal=causal, bq=bq, bk=bk)
+    atol = _flash_atol(q, k, v)
+    data_atol = _FLASH_DATA_ULPS * 2.0 ** -24 * float(v.float().abs().max())
+    rtol = _BF16_RTOL if dt == torch.bfloat16 else 0.0
+    tn = "bf16" if dt == torch.bfloat16 else "f32"
+    what = f"flash {tn} B={B} S={S} T={T} H={H} KV={KV} hd={hd} " \
+           f"causal={causal}"
+    if got.dtype != dt:
+        raise AssertionError(f"{what}: output dtype {got.dtype}")
+    err = check_close(what, got, want, rtol, atol)
+    check_close(f"{what} (data-scaled)", got, want, rtol * (1 + 2.0 ** -7),
+                data_atol)
+    # the error of each output row over that row's own max |out|
+    diff = (got.double() - want.double()).abs().amax(dim=-1)
+    row_rel = float((diff / want.double().abs().amax(dim=-1)
+                     .clamp_min(1e-30)).max())
+    return (q, k, v), {"shape": [B, S, T, H, KV, hd], "dtype": tn,
+                       "causal": causal, "max_abs_err": err, "atol": atol,
+                       "data_atol": data_atol, "rtol": rtol,
+                       "row_rel_err": row_rel}
+
+
+def kernel_flash(rates, gen):
+    """flash_attention against flash_ref at tests/test_flash.py's shapes
+    (S = 300 for the padding, bq = bk = 128) in f32 and bf16, every head
+    dim of the dense configs, S != T and a full (non-causal) call, and at
+    every prefill shape the model phases give it: gemma-2b's B = 4,
+    S = 2048 and 1 x 8192 (H = 8, KV = 1, hd = 256, bf16), its contract's
+    4 x 1023, the f32 2-layer run's 2 x 256 .. 263, nemotron-4-15b's
+    1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128), and hd = 192
+    (nemotron-4-340b's, G = 12); times of the kernel, the plain version
+    and SDPA beside the card's least time."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ref
+    checks = []
+    bf, f32 = torch.bfloat16, torch.float32
+    for (H, KV, S, hd) in [(4, 4, 256, 64), (8, 2, 256, 128), (4, 1, 300, 64),
+                           (2, 2, 512, 32)]:
+        for dt in (f32, bf):
+            checks.append(_flash_case(gen, 1, S, H, KV, hd, dt, bq=128,
+                                      bk=128)[1])
+    for hd in flash.HEAD_DIMS:
+        for dt in (f32, bf):
+            checks.append(_flash_case(gen, 2, 300, 6, 2, hd, dt)[1])
+    for (S, T, causal) in [(128, 256, True), (256, 100, True),
+                           (200, 256, False)]:
+        checks.append(_flash_case(gen, 2, S, 4, 2, 64, f32, T=T,
+                                  causal=causal, bk=64)[1])
+    checks.append(_flash_case(gen, 1, 1024, 24, 2, 192, bf)[1])
+    # the other prefills of the model phases (the timed ones follow)
+    for (B, S, H, KV, hd, dt) in [(1, 8192, 8, 1, 256, bf),
+                                  (4, 1023, 8, 1, 256, bf),
+                                  (2, 256, 8, 1, 256, f32),
+                                  (2, 263, 8, 1, 256, f32),
+                                  (1, 1023, 48, 8, 128, bf)]:
+        checks.append(_flash_case(gen, B, S, H, KV, hd, dt)[1])
+        torch.cuda.empty_cache()
+
+    def timed(gen, B, S, H, KV, hd, dt, reps):
+        (q, k, v), chk = _flash_case(gen, B, S, H, KV, hd, dt)
+        esz = q.element_size()
+        flops = 4.0 * B * H * hd * S * (S + 1) / 2
+        nbytes = esz * hd * (2 * B * S * H + 2 * B * S * KV)
+        bound, by = bound_ms(flops, nbytes,
+                             "bf16" if dt == bf else "f32", rates)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = cuda_ms(lambda: flash.flash_attention_bshd(q, k, v), reps=reps)
+        return chk, {
+            "max_abs_err": chk["max_abs_err"],
+            "tol": f"{_FLASH_TOL} = {chk['atol']:g}; {_FLASH_DATA_TOL} "
+                   f"= {chk['data_atol']:g}",
+            "ms": ms,
+            "plain_ms": cuda_ms(lambda: ref.flash_ref(q, k, v),
+                                reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=reps),
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on [B, H, S, hd] views",
+            "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+            "tflop_per_s": flops / ms / 1e9,
+            "shape": [B, S, H, KV, hd],
+            "dtype": "bf16" if dt == bf else "f32"}
+
+    main_chk, main = timed(gen, 4, 2048, 8, 1, 256, bf, 10)
+    f32_chk, f32_t = timed(gen, 4, 2048, 8, 1, 256, f32, 10)
+    gqa_chk, gqa = timed(gen, 1, 4096, 48, 8, 128, bf, 5)
+    checks += [main_chk, f32_chk, gqa_chk]
+    torch.cuda.empty_cache()
+    return checks, {**main, "f32": f32_t, "nemotron-4-15b": gqa}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1135,12 +1300,17 @@ _SPANS = (("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
           ("commit", "panel_update"), ("residual_kernel", "residual_fused"),
           ("trsm_kernel", "trsm_leaf"), ("syrk_tiles", "syrk_leaf"),
-          ("syrk_reduce", "syrk_leaf"))
+          ("syrk_reduce", "syrk_leaf"), ("flash_kernel", "flash_attention"),
+          ("nvjet", "torch matmul (cuBLAS)"), ("gemm", "torch matmul (cuBLAS)"),
+          ("cutlass", "torch matmul (cuBLAS)"),
+          ("xmma", "torch matmul (cuBLAS)"))
 
 
 def _profiled(fn):
     """fn() under torch.profiler: wall ms, device ms by port kernel (the
-    rest as torch ops) and the device's busy share of the wall time."""
+    rest as torch's matmuls and other torch ops), the number of device
+    events (kernel launches, copies) and the device's busy share of the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1149,15 +1319,17 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by = {}
+    by, events = {}, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = next((k for frag, k in _SPANS if frag in ev.key),
                    "other (torch ops)")
         by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
+        events += ev.count
     busy = sum(by.values())
     return {"wall_ms": wall_ms, "device_ms_by_kernel": by,
+            "device_events": events,
             "device_busy_share": busy / wall_ms if by else None}
 
 
@@ -1294,6 +1466,215 @@ def cpu_agreement(name, n, seed, engine="blocked"):
             "tol": tol}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: model serving, the dense transformer family
+# ---------------------------------------------------------------------------
+def _model(arch, seed, **overrides):
+    """``arch``'s full config (with ``overrides``) and random weights drawn
+    on the card from a generator seeded with ``seed``."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    nbytes = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        items = node.values() if isinstance(node, dict) else node
+        for v in items:
+            if torch.is_tensor(v):
+                nbytes += v.numel() * v.element_size()
+            else:
+                stack.append(v)
+    return cfg, params, nbytes / 2 ** 30
+
+
+def _prompt(cfg, batch, length, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (batch, length), generator=g,
+                         device="cuda")
+
+
+def _flash_count():
+    from repro_torch.kernels import ops
+    return ops.LAUNCHES["flash_attention"]
+
+
+def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
+                 seed, note=None, profile=False):
+    """One request batch of random prompts through ``generate`` (greedy),
+    then the same loop timed: prefill_step by CUDA events, each serve_step
+    on the host clock between synchronizations; with ``profile``, one more
+    prefill and decode step under torch.profiler. Every prefill must
+    launch flash_attention once per layer; every logit must be finite."""
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+    prompt = {"tokens": _prompt(cfg, batch, prompt_len, seed)}
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = _flash_count()
+    t0 = time.perf_counter()
+    out = serve.generate(params, prompt, cfg, n_tokens=n_new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flash_gen = _flash_count() - before
+    what = f"{label} {cfg.name} B={batch} S={prompt_len}"
+    if flash_gen != L:
+        raise AssertionError(f"{what}: generate launched flash_attention "
+                             f"{flash_gen} times, not n_layers = {L}")
+    if (tuple(out.shape) != (batch, n_new) or int(out.min()) < 0
+            or int(out.max()) >= cfg.vocab):
+        raise AssertionError(f"{what}: bad tokens {tuple(out.shape)}")
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    before = _flash_count()
+    start.record()
+    last, caches = serve.prefill_step(params, prompt, cfg)
+    stop.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(stop)
+    flash_prefill = _flash_count() - before
+    if flash_prefill != L:
+        raise AssertionError(f"{what}: prefill launched flash_attention "
+                             f"{flash_prefill} times, not {L}")
+    caches = T.pad_caches(caches, prompt_len + n_new)
+    finite = [bool(torch.isfinite(last).all())]
+    tok = last.argmax(-1)[:, None]
+    toks, steps = [tok], []
+    for i in range(1, n_new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = serve.serve_step(params, caches, tok,
+                                          prompt_len + i - 1, cfg)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        finite.append(bool(torch.isfinite(logits).all()))
+        tok = logits.argmax(-1)[:, None]
+        toks.append(tok)
+    if not all(finite):
+        raise AssertionError(f"{what}: non-finite logits")
+    step_ms = statistics.median(steps)
+    line = {"phase": label, "arch": cfg.name, "n_layers": L,
+            "dtype": cfg.activ_dtype, "param_gib": param_gib,
+            "batch": batch, "prompt_len": prompt_len, "new_tokens": n_new,
+            "generate_s": gen_s,
+            "generate_tok_per_s": batch * n_new / gen_s,
+            "prefill_ms": prefill_ms,
+            "prefill_tok_per_s": batch * prompt_len / prefill_ms * 1e3,
+            "decode_ms_per_step_median": step_ms,
+            "decode_ms_per_step_min": min(steps),
+            "decode_ms_per_step_max": max(steps),
+            "decode_tok_per_s": batch / step_ms * 1e3,
+            "peak_gib": peak, "flash_launches_per_prefill": flash_prefill,
+            "logits_finite": True,
+            "timed_loop_tokens_equal_generate": torch.equal(
+                torch.cat(toks, dim=1), out)}
+    if note:
+        line["note"] = note
+    if profile:
+        line["prefill_profiled"] = _profiled(
+            lambda: serve.prefill_step(params, prompt, cfg))
+        line["decode_step_profiled"] = _profiled(
+            lambda: serve.serve_step(params, caches, tok,
+                                     prompt_len + n_new - 1, cfg))
+    del caches
+    torch.cuda.empty_cache()
+    return line
+
+
+#: The bf16 decode-vs-prefill gap has no tight derivation: the 2 L
+#: branch outputs round to bf16 in both paths and the next layers mix
+#: those roundings, so 2 L 2^-8 max|logits| is only a ceiling (0.68 at
+#: gemma-2b's 18 layers, 9 times the reading). The gate is the smaller
+#: of that and 3 x the largest reading of the sound runs at these seeds
+#: (this script on an NVIDIA H100 80GB HBM3 at 700 W; the same seeds
+#: read the same in every run); the f32 run holds the reference's 5e-4.
+_BF16_CONTRACT_READ = {"gemma-2b": 0.07421875, "nemotron-4-15b": 0.03125}
+
+
+def decode_contract(label, cfg, params, batch, length, seed):
+    """The reference's contract (tests/test_archs.py:55-77) at size:
+    prefill length - 1 tokens, pad the caches, decode the last token; its
+    logits against the full prefill's last logits."""
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+    toks = _prompt(cfg, batch, length, seed)
+    full, _ = serve.prefill_step(params, {"tokens": toks}, cfg)
+    _, caches = serve.prefill_step(params, {"tokens": toks[:, :-1]}, cfg)
+    caches = T.pad_caches(caches, length)
+    dec, _ = serve.serve_step(params, caches, toks[:, -1:], length - 1, cfg)
+    what = f"{label} {cfg.name} decode vs prefill"
+    if not (bool(torch.isfinite(full).all())
+            and bool(torch.isfinite(dec).all())):
+        raise AssertionError(f"{what}: non-finite logits")
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    if cfg.activ_dtype == "f32":
+        tol, how = 5e-4, "5e-4, the reference's contract"
+    else:
+        tol = min(2 * cfg.n_layers * 2.0 ** -8 * scale,
+                  3 * _BF16_CONTRACT_READ[cfg.name])
+        how = ("min(2 L 2^-8 max|logits|, 3 x the sound runs' reading "
+               f"{_BF16_CONTRACT_READ[cfg.name]:g})")
+    if not err < tol:
+        raise AssertionError(f"{what}: {err:g} >= {tol:g} ({how})")
+    del caches
+    torch.cuda.empty_cache()
+    return {"phase": f"{label}_decode_vs_prefill", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "dtype": cfg.activ_dtype,
+            "batch": batch, "length": length, "max_abs_err": err,
+            "max_abs_logit": scale, "tol": tol, "tol_is": how,
+            "argmax_agree_share": float(
+                (dec.argmax(-1) == full.argmax(-1)).float().mean())}
+
+
+def token_exact(label, cfg, params, batch, length, n_new, seed):
+    """tests/test_serve.py:14-41 at size: greedy generate equals re-running
+    the full prefill for every new token."""
+    from repro_torch import serve
+    toks = _prompt(cfg, batch, length, seed)
+    got = serve.generate(params, {"tokens": toks}, cfg, n_tokens=n_new)
+    cur = toks
+    for _ in range(n_new):
+        last, _ = serve.prefill_step(params, {"tokens": cur}, cfg)
+        cur = torch.cat([cur, last.argmax(-1)[:, None]], dim=1)
+    if not torch.equal(got, cur[:, length:]):
+        raise AssertionError(f"{label}: generate != teacher-forced greedy: "
+                             f"{got.tolist()} vs {cur[:, length:].tolist()}")
+    return {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "dtype": cfg.activ_dtype, "batch": batch, "prompt_len": length,
+            "new_tokens": n_new, "generate_equals_teacher_forced": True}
+
+
+def model_cpu_agreement(arch, seed):
+    """Prefill logits of a smoke config on the card against the same port
+    run on the CPU (the plain versions), f32 on the same weights; 1e-4 as
+    tests/test_torch_models.py holds the port to the reference (f32 sums
+    in other orders move these logits by a few 1e-6)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_config(arch, smoke=True)
+    pc = T.init_params(cfg, seed=seed, device="cpu")
+
+    def to_card(node):
+        if isinstance(node, dict):
+            return {k: to_card(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_card(v) for v in node]
+        return node.cuda()
+    pg = to_card(pc)
+    toks = torch.randint(0, cfg.vocab, (2, 48),
+                         generator=torch.Generator().manual_seed(seed))
+    lc = T.forward(pc, {"tokens": toks}, cfg, mode="prefill")[0]
+    lg = T.forward(pg, {"tokens": toks.cuda()}, cfg, mode="prefill")[0]
+    err = check_close(f"{arch} smoke card vs CPU", lg.cpu(), lc, 0, 1e-4)
+    return {"arch": cfg.name, "shape": [2, 48], "max_abs_err": err,
+            "tol": 1e-4}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1326,7 +1707,8 @@ def main() -> int:
                      ("trsm_leaf", lambda: kernel_trsm(rates, gen, N_MAIN)),
                      ("syrk_leaf", lambda: kernel_syrk_leaf(rates, gen)),
                      ("syrk_packed", lambda: kernel_syrk_packed(rates, gen,
-                                                                N_MAIN))):
+                                                                N_MAIN)),
+                     ("flash_attention", lambda: kernel_flash(rates, gen))):
         t0 = time.perf_counter()
         checks, timing = fn()
         torch.cuda.synchronize()
@@ -1374,6 +1756,39 @@ def main() -> int:
                                 residual_dtype="f32"),
              lambda: refine_run("bf16_f32", N_MAIN, 612, engine="tree")])
     drive("serve", SERVE_KERNELS, [lambda: serve_phase(N_MAIN, 700)])
+
+    # model serving: gemma-2b at full width and depth, bf16
+    cfg, params, gib = _model("gemma-2b", 900)
+    drive("generate", ("flash_attention",),
+          [lambda: generate_run("generate", cfg, params, gib, 4, 2048, 32,
+                                901, profile=True),
+           lambda: generate_run("generate", cfg, params, gib, 1, cfg.max_seq,
+                                8, 902),
+           lambda: decode_contract("generate", cfg, params, 4, 1024, 903)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("nemotron-4-15b", 910, n_layers=2)
+    cut = ("depth cut to 2 of 32 layers: the GQA path (KV = 8, G = 6, "
+           "hd = 128) and the relu2 MLP at full width")
+    drive("generate_gqa", ("flash_attention",),
+          [lambda: generate_run("generate_gqa", cfg, params, gib, 1, 4096, 8,
+                                911, note=cut),
+           lambda: decode_contract("generate_gqa", cfg, params, 1, 1024,
+                                   912)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("gemma-2b", 920, n_layers=2,
+                              param_dtype="f32", activ_dtype="f32")
+    drive("token_exact_f32", ("flash_attention",),
+          [lambda: token_exact("token_exact_f32", cfg, params, 2, 256, 8,
+                               921),
+           lambda: decode_contract("token_exact_f32", cfg, params, 2, 256,
+                                   922)])
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "model_cpu_agreement",
+          "runs": [model_cpu_agreement(arch, 930 + i) for i, arch in
+                   enumerate(("gemma-2b", "granite-34b", "nemotron-4-15b"))]})
 
     elapsed = time.perf_counter() - t_start
     if elapsed < 500:

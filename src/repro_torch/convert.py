@@ -13,6 +13,11 @@ port factor goes back through :func:`factor_to_numpy`. A reference
 ``diag2``, ``level``, ``n1`` and ``n``) becomes the port's through
 :func:`treespd_from_reference` and goes back, as a ``TreeSPD`` of numpy
 arrays, through :func:`treespd_to_numpy`.
+
+For the model zoo the state is the parameter pytree: the reference's
+(nested dicts of arrays, the layers stacked ``[L, ...]``) becomes the
+port's (the same dicts, the layers a list) through
+:func:`model_params_from_reference`, bit for bit.
 """
 from __future__ import annotations
 
@@ -99,6 +104,31 @@ def treespd_to_numpy(t):
                    level=t.level, n1=t.n1, n=t.n)
 
 
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def model_params_from_reference(params, cfg, device="cuda"):
+    """The port's parameters (:mod:`repro_torch.models.transformer`) from
+    a reference pytree of ``repro.models.transformer.init_params``, given
+    as nested dicts of arrays (numpy, or anything ``numpy.asarray``
+    takes; bf16 crosses through its 16-bit pattern). The stacked
+    ``layers`` leaves ``[L, ...]`` are split into ``cfg.n_layers``
+    per-layer dicts. The dense family only (ROADMAP A12)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is ROADMAP A12 "
+                                  "(model zoo: the non-dense families)")
+    out = {k: _map(lambda a: _tensor(a, device), v)
+           for k, v in params.items() if k != "layers"}
+    stacked = _map(lambda a: _tensor(a, device), params["layers"])
+    out["layers"] = [_map(lambda t, i=i: t[i], stacked)
+                     for i in range(cfg.n_layers)]
+    return out
+
+
 __all__ = ["config_from_fields", "factor_from_numpy", "factor_to_numpy",
+           "model_params_from_reference",
            "refine_config_from_fields", "treespd_from_reference",
            "treespd_to_numpy"]

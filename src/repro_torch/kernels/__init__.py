@@ -11,6 +11,8 @@ Modules:
   trsm.py   — the tree engine's leaf solve B L^-T via L^-1 (csrc/trsm.cu)
   syrk.py   — syrk_leaf, syrk_packed: lower-triangle C + A A^T
               (csrc/syrk.cu)
+  flash.py  — flash_attention_bshd: causal GQA attention of the model
+              zoo's prefill (csrc/flash.cu)
   _build.py — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing: the kernels are compiled at their

@@ -1,7 +1,9 @@
 """Kernel dispatch by device, with one launch counter per kernel.
 
 Counterpart of ``repro/kernels/ops.py`` for the factor, solve and
-refinement path of both engines.
+refinement path of both engines, and of the model zoo's prefill attention
+(``flash_attention``; the reference's models call its oracle, the scan in
+``repro/models/attention.py``, where the port calls the kernel).
 The dispatch rule has no switch: a tensor on the CPU runs the plain
 version in :mod:`repro_torch.kernels.ref`; a tensor on a CUDA device
 launches the hand-written kernel, for f32 and f64 alike (the card has
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash as _flash
 from repro_torch.kernels import panel as _panel
 from repro_torch.kernels import potrf as _potrf
 from repro_torch.kernels import qgemm as _qgemm
@@ -33,7 +36,7 @@ from repro_torch.kernels import trsm as _trsm
 
 LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
             "panel_update": 0, "residual_fused": 0, "trsm_leaf": 0,
-            "syrk_leaf": 0, "syrk_packed": 0}
+            "syrk_leaf": 0, "syrk_packed": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -158,3 +161,26 @@ def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,
     a21.copy_(l21)
     c.copy_(cu)
     return a21, c
+
+
+def flash_attention(q, k, v, *, causal=True, bq=_ref.FLASH_BQ,
+                    bk=_ref.FLASH_BK):
+    """Causal (or full) GQA attention, q [H, S, hd], k/v [KV, T, hd] ->
+    [H, S, hd] (``repro/kernels/flash.py:flash_attention``):
+    :func:`flash_attention_bshd` on views with B = 1."""
+    out = flash_attention_bshd(q.transpose(0, 1)[None],
+                               k.transpose(0, 1)[None],
+                               v.transpose(0, 1)[None], causal=causal,
+                               bq=bq, bk=bk)
+    return out[0].transpose(0, 1)
+
+
+def flash_attention_bshd(q, k, v, *, causal=True, bq=_ref.FLASH_BQ,
+                         bk=_ref.FLASH_BK):
+    """The batched form, q [B, S, H, hd], k/v [B, T, KV, hd] ->
+    [B, S, H, hd]: one launch over B * H on the card. ``bq``/``bk`` set
+    the plain version's blocks; the kernel walks its own."""
+    if _on_card(q, k, v):
+        LAUNCHES["flash_attention"] += 1
+        return _flash.flash_attention_bshd(q, k, v, causal=causal, bk=bk)
+    return _ref.flash_ref(q, k, v, causal=causal, bq=bq, bk=bk)

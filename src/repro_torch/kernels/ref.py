@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/ref.py`` for the kernels of the factor,
 solve and refinement path (``qgemm``, ``potrf_leaf``, ``tri_inv_leaf``,
-``panel_update``, ``residual_fused``) and of the tree engine
-(``trsm_leaf``, ``syrk_leaf``, ``syrk_packed``). They are what
+``panel_update``, ``residual_fused``), of the tree engine
+(``trsm_leaf``, ``syrk_leaf``, ``syrk_packed``) and of the model zoo's
+prefill attention (``flash_attention``). They are what
 :mod:`repro_torch.kernels.ops` runs for a tensor on the CPU, and what the
 CUDA kernels are held against on the card. Each follows the reference's
 arithmetic step for step: the same casts, the same per-tile absmax and the
@@ -255,3 +256,76 @@ def panel_update_ref(linv, a21, c, *, store_names, store_quants,
         upd = torch.where(lower, upd, cur)
         c[j0:j0 + b, j0:j0 + b] = upd.to(c.dtype)
     return l21.to(a21.dtype), c
+
+
+# ---------------------------------------------------------------------------
+# flash attention (repro/kernels/flash.py)
+# ---------------------------------------------------------------------------
+FLASH_NEG_INF = -1e30
+FLASH_BQ = 256
+FLASH_BK = 256
+
+
+def flash_ref(q, k, v, *, causal=True, bq=FLASH_BQ, bk=FLASH_BK):
+    """Causal (or full) GQA attention, q [B, S, H, hd], k/v [B, T, KV, hd]
+    with H = KV * G, -> [B, S, H, hd] in q's dtype; query head h reads kv
+    head h // G, and repeated K/V are never materialized.
+
+    The Pallas kernel's walk, block by block: q padded to a multiple of
+    ``bq = min(bq, S)`` and k/v to one of ``bk = min(bk, T)``; for each
+    q block an online softmax over the kv blocks, the blocks strictly past
+    the diagonal skipped; ``s = (q * hd**-0.5) k^T`` in f32, masked with
+    -1e30, the running max, ``l`` and ``acc`` in f32 and ``p`` kept in f32
+    for ``p @ v``; the output ``acc / max(l, 1e-30)``. The causal mask is
+    top-left aligned (``q_index >= k_index``, both from 0), also when
+    S != T. Unlike the Pallas kernel, the padded keys (index >= T) are
+    masked too: there they take part, with score 0, in the rows past T
+    when S > T and T is no multiple of ``bk`` (ROADMAP.md section C).
+    A full (non-causal) call needs ``T % bk == 0``, as in the reference.
+    """
+    B, S, H, hd = q.shape
+    _, T, KV, _ = k.shape
+    if H % KV:
+        raise ValueError(f"flash: H = {H} is no multiple of KV = {KV}")
+    G = H // KV
+    bq, bk = min(bq, S), min(bk, T)
+    Sp, Tp = -(-S // bq) * bq, -(-T // bk) * bk
+    if not causal and Tp != T:
+        raise ValueError("flash: the non-causal path requires T % bk == 0")
+    f32 = torch.float32
+    qf = q.permute(0, 2, 1, 3).to(f32) * (hd ** -0.5)       # [B, H, S, hd]
+    qf = qf.reshape(B, KV, G, S, hd)
+    kf = k.permute(0, 2, 1, 3).to(f32)[:, :, None]         # [B, KV, 1, T, hd]
+    vf = v.permute(0, 2, 1, 3).to(f32)[:, :, None]
+    qf = torch.nn.functional.pad(qf, (0, 0, 0, Sp - S))
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, Tp - T))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, Tp - T))
+    out = torch.empty((B, KV, G, Sp, hd), dtype=f32, device=q.device)
+    iq = torch.arange(bq, device=q.device)[:, None]
+    ik = torch.arange(bk, device=q.device)[None, :]
+    for qb in range(Sp // bq):
+        qs = qf[..., qb * bq:(qb + 1) * bq, :]
+        m = torch.full((B, KV, G, bq, 1), FLASH_NEG_INF, dtype=f32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, G, bq, hd), dtype=f32, device=q.device)
+        for kb in range(Tp // bk):
+            if causal and kb * bk > qb * bq + bq - 1:
+                break
+            ks = kf[..., kb * bk:(kb + 1) * bk, :]
+            s = qs @ ks.transpose(-1, -2)                    # [.., bq, bk]
+            ki = kb * bk + ik
+            valid = ki < T
+            if causal:
+                valid = valid & (qb * bq + iq >= ki)
+            s = torch.where(valid, s, FLASH_NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + p @ vf[..., kb * bk:(kb + 1) * bk, :]
+            m = m_new
+        out[..., qb * bq:(qb + 1) * bq, :] = acc / torch.clamp_min(l, 1e-30)
+    out = out[..., :S, :].reshape(B, H, S, hd).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+

@@ -1,5 +1,5 @@
-"""The curated solve-serving surface of the port — import serving names
-from HERE (counterpart of the solver part of ``repro.serve``).
+"""The curated serving surface of the port — import serving names
+from HERE (counterpart of ``repro.serve``).
 
 The stack, bottom-up:
 
@@ -17,11 +17,13 @@ The stack, bottom-up:
   implements; :class:`InMemoryMetrics` / :class:`NullMetrics` the
   bundled implementations.
 
-The model-serving half of the reference (``prefill_step``,
-``serve_step``, ``generate``) is ROADMAP A12.
+The model-serving half: :func:`prefill_step`, :func:`serve_step` and
+:func:`generate` (the dense family of the model zoo; the rest is ROADMAP
+A12).
 """
-from repro_torch.serve.engine import (SolveInfo, SolverEngine,
-                                      matrix_fingerprint)
+from repro_torch.serve.engine import (SolveInfo, SolverEngine, generate,
+                                      matrix_fingerprint, prefill_step,
+                                      serve_step)
 from repro_torch.serve.frontend import ServeFrontend
 from repro_torch.serve.metrics import (InMemoryMetrics, MetricsTracker,
                                        NullMetrics)
@@ -40,5 +42,8 @@ __all__ = [
     "SolveOptions",
     "SolveRequest",
     "SolverEngine",
+    "generate",
     "matrix_fingerprint",
+    "prefill_step",
+    "serve_step",
 ]

@@ -1,15 +1,22 @@
-"""Accuracy-targeted SPD solve serving, in torch.
+"""Serving engine, in torch: batched prefill + decode, and
+accuracy-targeted SPD solve serving.
 
-Counterpart of the solver half of ``repro/serve/engine.py``: SPD solve
-requests carry a per-request ACCURACY TARGET (decimal digits of relative
-residual) instead of naming a precision ladder. The engine factorizes in
-its cheap ladder once per matrix, caches the factor, and spends
-iterative-refinement sweeps — O(n^2) each — to reach the requested digits.
+Counterpart of ``repro/serve/engine.py``. ``prefill_step`` /
+``serve_step`` are one full-sequence forward and one decode step of the
+model zoo (the dense family; the others are ROADMAP A12); ``generate`` is
+the host loop around them: prefill a prompt batch, then greedy or sampled
+decoding. ``serve_step`` writes the new position into the caches in
+place (the reference returns new arrays).
+
+``SolverEngine`` is the linear-algebra side: SPD solve requests carry a
+per-request ACCURACY TARGET (decimal digits of relative residual) instead
+of naming a precision ladder. The engine factorizes in its cheap ladder
+once per matrix, caches the factor, and spends iterative-refinement
+sweeps — O(n^2) each — to reach the requested digits.
 
 Left out, each raising ``NotImplementedError`` that names the ROADMAP item
-that ports it: mesh mode (``mesh=``, A9), the
-tuner (``tuning_db=``, ``engine="auto"``, A8) and the decode half of the
-reference module (``prefill_step``, ``serve_step``, ``generate``, A12).
+that ports it: mesh mode (``mesh=``, A9) and the tuner (``tuning_db=``,
+``engine="auto"``, A8).
 """
 from __future__ import annotations
 
@@ -27,24 +34,59 @@ from repro_torch.core.refine import (RefineConfig, RefineStepper,
 from repro_torch.core.solve import (as_tensor, cholesky_padded,
                                     refine_solve, solve_factored)
 from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ModelConfig
 from repro_torch.serve.metrics import MetricsTracker, NullMetrics
 from repro_torch.serve.options import SolveOptions, resolve_options
 
 MESH_ITEM = "ROADMAP A9 (distributed: SolverEngine mesh mode)"
 TUNER_ITEM = "ROADMAP A8 (census, tuner: tuning_db, engine='auto')"
-DECODE_ITEM = "ROADMAP A12 (model zoo: the decode half of serve/engine.py)"
 
 
-def prefill_step(*args, **kwargs):
-    raise NotImplementedError(f"prefill_step is {DECODE_ITEM}")
+def prefill_step(params, batch, cfg: ModelConfig):
+    """Full-sequence forward; returns (last_logits [B, V] f32, caches)."""
+    logits, _, caches = T.forward(params, batch, cfg, mode="prefill",
+                                  last_only=True)
+    return logits[:, -1], caches
 
 
-def serve_step(*args, **kwargs):
-    raise NotImplementedError(f"serve_step is {DECODE_ITEM}")
+def serve_step(params, caches, tokens, pos, cfg: ModelConfig):
+    """One decode step. tokens: [B, 1]; pos: the absolute position (int).
+    Returns (logits [B, V], caches), the caches updated in place."""
+    logits, _, caches = T.forward(params, {"tokens": tokens}, cfg,
+                                  mode="decode", caches=caches, pos=pos)
+    return logits[:, 0], caches
 
 
-def generate(*args, **kwargs):
-    raise NotImplementedError(f"generate is {DECODE_ITEM}")
+def generate(params, prompt_batch, cfg: ModelConfig, *, n_tokens: int,
+             temperature: float = 0.0, rng=None):
+    """Greedy (``temperature == 0``) or sampled generation: prefill the
+    prompt batch, then ``n_tokens - 1`` decode steps. Runs where the
+    parameters lie. ``rng`` is a ``torch.Generator`` on that device, needed
+    for sampling. Returns the new tokens, [B, n_tokens] int64."""
+    S = prompt_batch["tokens"].shape[1]
+    last, caches = prefill_step(params, prompt_batch, cfg)
+    caches = T.pad_caches(caches, S + n_tokens)
+    outs = []
+    tok = _pick(last, temperature, rng)
+    outs.append(tok)
+    for i in range(1, n_tokens):
+        logits, caches = serve_step(params, caches, tok, S + i - 1, cfg)
+        tok = _pick(logits, temperature, rng)
+        outs.append(tok)
+    return torch.cat(outs, dim=1)
+
+
+def _pick(logits, temperature, rng):
+    """logits: [B, V] -> next token [B, 1]: argmax, or a draw from
+    ``softmax(logits / temperature)`` with ``rng`` (the reference folds
+    the step index into its key; a generator advances instead)."""
+    if temperature > 0:
+        if rng is None:
+            raise ValueError("sampling (temperature > 0) needs rng")
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=rng)
+    return torch.argmax(logits, dim=-1)[:, None]
 
 
 def matrix_fingerprint(a, samples: int = 8):

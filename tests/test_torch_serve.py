@@ -554,15 +554,12 @@ def test_scheduler_multi_column_request():
 
 
 def test_unported_serving_raises():
-    """Mesh mode, the tuner and the decode half name their ROADMAP items."""
-    from repro_torch.serve import engine
+    """Mesh mode and the tuner name their ROADMAP items (the decode half
+    is ported: tests/test_torch_models.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SolverEngine(mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         SolverEngine(tuning_db=object())
-    for fn in (engine.prefill_step, engine.serve_step, engine.generate):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            fn()
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
