@@ -10,22 +10,27 @@ result line. Phases:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions, build time.
 2. ``kernel``: each of the nine kernels against its plain PyTorch version
-   on the card, for every operand type and rounding variant, at the
+   (``flash_attention`` on both of its routes: the tensor-core kernel for
+   bf16 and f16, the SIMT one for f32) on the card, for every operand type
+   and rounding variant, at the
    shapes of tests/test_kernels.py and at the main paths' shapes (leaf
    b = 256, the first diagonal tile of the n = 16384 matrix, panel
    heights m = 256 .. n - 256, the residual at n = 16384 with 16 columns;
    the tree engine's leaves: ``trsm_leaf`` with M = 256 and 8192,
    ``syrk_leaf`` with k = 256 and 8192 in every level type,
    ``syrk_packed`` at n = k = 8192 and a ragged (500, 513);
-   ``flash_attention`` at tests/test_flash.py's shapes in f32 and bf16,
-   every dense head dim 16 .. 256, S != T and a full call, and at every
+   ``flash_attention`` at tests/test_flash.py's shapes in f32, bf16 and
+   f16, every dense head dim 16 .. 256, S != T and a full call, a strided
+   16-bit view and two refused ones, and at every
    prefill shape of phase 8: gemma-2b's 4 x 2048, 1 x 8192 and 4 x 1023
    (H = 8, KV = 1, hd = 256, bf16) and 2 x 256 .. 263 (f32),
    nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128),
    and hd = 192; each case against the derived worst-case atol and a
-   data-scaled one, 256 u max|v|); times of the
-   kernel, the plain version and the one PyTorch call computing the same
-   function (where there is one), beside the card's least time for that
+   data-scaled one, 256 u max|v|, and each 16-bit case to a share of
+   rounded outputs that differ from the plain version's, which a one-pass
+   p (tests/test_torch_flash.py's emulation, run here) exceeds); times
+   of the kernel, the plain version and the one PyTorch call computing the
+   same function (where there is one), beside the card's least time for that
    work. ``residual_fused`` is also checked for column independence,
    bitwise, and the triangular decode the kernels run against integer
    arithmetic.
@@ -67,7 +72,9 @@ result line. Phases:
    tokens with 32 new tokens each, greedy, and 1 prompt of 8192 tokens
    (its max_seq) with 8; per request batch prefill ms, decode ms per step
    (median), tokens/s, peak GiB and the flash launches, which must equal
-   n_layers per prefill; then the reference's decode-vs-prefill contract
+   n_layers per prefill, all on the route of the model's dtype (flash_tc
+   for bf16, the SIMT kernel for f32); then the reference's
+   decode-vs-prefill contract
    (tests/test_archs.py:55-77) at 4 x 1024 within a stated bf16
    tolerance. ``generate_gqa``: nemotron-4-15b at full width with 2 of its
    32 layers (the GQA path, KV = 8, G = 6, hd = 128, and the relu2 MLP),
@@ -87,6 +94,8 @@ nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
 import statistics
@@ -119,9 +128,31 @@ KERNELS = {
                   "src/repro/kernels/syrk.py:68"),
     "syrk_packed": ("src/repro_torch/kernels/csrc/syrk.cu",
                     "src/repro/kernels/syrk.py:137"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash.cu",
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_tc.cuh",
                         "src/repro/kernels/flash.py:75"),
+    "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash.cu",
+                            "src/repro/kernels/flash.py:75"),
 }
+#: the launches of each entry of KERNELS: ops.LAUNCHES by name, except the
+#: two routes of flash_attention (one kernel there), which ops.FLASH_ROUTES
+#: splits by flash.route of a dtype each takes: "flash_attention" here is
+#: the bf16/f16 route
+FLASH_DTYPE = {"flash_attention": torch.bfloat16,
+               "flash_attention_f32": torch.float32}
+
+
+def flash_launches(dtype) -> int:
+    """flash_attention launches so far on the route of dtype."""
+    from repro_torch.kernels import flash, ops
+    return ops.FLASH_ROUTES[flash.route(dtype)]
+
+
+def launch_counts() -> dict:
+    """The launch counts of every entry of KERNELS since the last
+    ``ops.reset_launches()``."""
+    from repro_torch.kernels import ops
+    return {name: (flash_launches(FLASH_DTYPE[name]) if name in FLASH_DTYPE
+                   else ops.LAUNCHES[name]) for name in KERNELS}
 #: the kernels each driven path must launch
 PATH_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
 TREE_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "trsm_leaf",
@@ -790,10 +821,16 @@ def _flash_atol(q, k, v):
     return float(v.float().abs().max()) * (2 * ds + 4 * (T + 2) * u + 16 * u)
 
 
-#: bf16 outputs: each side rounds once to bf16, up to 2^-7 of |out| apart
+#: 16-bit outputs: each side rounds once to its type, up to one unit of
+#: the last place of |out| apart: 2^-7 in bf16, 2^-10 in f16
 _BF16_RTOL = 2.0 ** -7
+_F16_RTOL = 2.0 ** -10
+_RTOL = {torch.bfloat16: _BF16_RTOL, torch.float16: _F16_RTOL,
+         torch.float32: 0.0}
+_TNAME = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 _FLASH_TOL = ("atol max|v| (2 ds + 4 (T + 2) u + 16 u), ds = 2 (hd + 2) u "
-              "max|q| max|k| hd^-0.5, u = 2^-24; bf16 adds rtol 2^-7")
+              "max|q| max|k| hd^-0.5, u = 2^-24; bf16 adds rtol 2^-7, "
+              "f16 2^-10")
 #: The derived atol is a worst case (Cauchy-Schwarz on the scores, every
 #: rounding of a T-term sum the same way) and at gemma's shape is 1e-2,
 #: while a late row's |out| is a few 1e-2: a defect confined to rows far
@@ -801,72 +838,148 @@ _FLASH_TOL = ("atol max|v| (2 ds + 4 (T + 2) u + 16 u), ds = 2 (hd + 2) u "
 #: data-scaled atol of 256 u max|v|, the typical (random-walk) growth of
 #: the same sums, sqrt(hd) + sqrt(T) <= 107 units at most here, with room
 #: over the f32 readings (under 3 u max|v| at every shape, this script
-#: on an NVIDIA H100 80GB HBM3 at 700 W). In bf16 each side rounds its
-#: f32 value to within 2^-8 of itself, and the unrounded value is within
-#: 1 / (1 - 2^-8) of the rounded |out|: rtol 2^-7 (1 + 2^-7) on top.
+#: on an NVIDIA H100 80GB HBM3 at 700 W). In a 16-bit type each side
+#: rounds its f32 value to within half a unit of the last place, and the
+#: unrounded value is within 1 / (1 - rtol / 2) of the rounded |out|:
+#: rtol (1 + rtol) on top.
 _FLASH_DATA_ULPS = 256
 _FLASH_DATA_TOL = ("atol 256 u max|v|, u = 2^-24; bf16 adds rtol "
-                   "2^-7 (1 + 2^-7)")
+                   "2^-7 (1 + 2^-7), f16 2^-10 (1 + 2^-10)")
+
+
+@functools.cache
+def _tc_emulation():
+    """tests/test_torch_flash.py, which holds the plain-torch emulation of
+    flash_tc's arithmetic (with its one-pass-p variant) and the gate on
+    the share of rounded outputs that differ from the plain version's: the
+    two atols above are wider than what a one-pass p (2^-8 of itself in
+    bf16) does to a 16-bit output, so each 16-bit case is also held to
+    that share, and the emulation's one-pass p, on the same inputs, must
+    exceed it."""
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_flash", ROOT / "tests" / "test_torch_flash.py")
+    mod = importlib.util.module_from_spec(spec)
+    threads = torch.get_num_threads()
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)  # the CPU suite pins 2
+    return mod
 
 
 def _flash_case(gen, B, S, H, KV, hd, dt, T=None, causal=True, bq=256,
-                bk=256):
+                bk=256, strided=False):
     """The kernel through ops' batched form against flash_ref with the
-    reference's blocks, on [B, S, H, hd] and [B, T, KV, hd] operands."""
+    reference's blocks, on [B, S, H, hd] and [B, T, KV, hd] operands
+    (``strided``: each cut from [B, n + 3, heads + 1, hd + 16], every
+    base and stride still a multiple of 16 bytes in a 16-bit type)."""
     from repro_torch.kernels import flash, ref
     T = S if T is None else T
-    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
-    k = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((B, T, KV, hd), generator=gen, device="cuda").to(dt)
+    qkv = []
+    for (n, heads) in ((S, H), (T, KV), (T, KV)):
+        if strided:
+            x = torch.randn((B, n + 3, heads + 1, hd + 16), generator=gen,
+                            device="cuda").to(dt)[:, 2:-1, 1:, 8:-8]
+        else:
+            x = torch.randn((B, n, heads, hd), generator=gen,
+                            device="cuda").to(dt)
+        qkv.append(x)
+    q, k, v = qkv
     got = flash.flash_attention_bshd(q, k, v, causal=causal, bk=bk)
     want = ref.flash_ref(q, k, v, causal=causal, bq=bq, bk=bk)
     atol = _flash_atol(q, k, v)
     data_atol = _FLASH_DATA_ULPS * 2.0 ** -24 * float(v.float().abs().max())
-    rtol = _BF16_RTOL if dt == torch.bfloat16 else 0.0
-    tn = "bf16" if dt == torch.bfloat16 else "f32"
+    rtol = _RTOL[dt]
+    tn = _TNAME[dt]
     what = f"flash {tn} B={B} S={S} T={T} H={H} KV={KV} hd={hd} " \
-           f"causal={causal}"
+           f"causal={causal}" + (" strided" if strided else "")
     if got.dtype != dt:
         raise AssertionError(f"{what}: output dtype {got.dtype}")
     err = check_close(what, got, want, rtol, atol)
-    check_close(f"{what} (data-scaled)", got, want, rtol * (1 + 2.0 ** -7),
+    check_close(f"{what} (data-scaled)", got, want, rtol * (1 + rtol),
                 data_atol)
     # the error of each output row over that row's own max |out|
     diff = (got.double() - want.double()).abs().amax(dim=-1)
     row_rel = float((diff / want.double().abs().amax(dim=-1)
                      .clamp_min(1e-30)).max())
-    return (q, k, v), {"shape": [B, S, T, H, KV, hd], "dtype": tn,
-                       "causal": causal, "max_abs_err": err, "atol": atol,
-                       "data_atol": data_atol, "rtol": rtol,
-                       "row_rel_err": row_rel}
+    chk = {"shape": [B, S, T, H, KV, hd], "dtype": tn, "causal": causal,
+           "strided": strided, "max_abs_err": err, "atol": atol,
+           "data_atol": data_atol, "rtol": rtol, "row_rel_err": row_rel}
+    if dt != torch.float32:
+        emu = _tc_emulation()
+        share = emu.mismatch_share(got, want)
+        control = emu.mismatch_share(
+            emu._tc_emulation(q, k, v, causal=causal, one_pass=True).to(dt),
+            want)
+        if not share <= emu.MISMATCH_SHARE < control:
+            raise AssertionError(
+                f"{what}: {share:.5f} of the rounded outputs differ from "
+                f"flash_ref's, {control:.5f} with a one-pass p; the gate "
+                f"needs <= {emu.MISMATCH_SHARE} < the latter")
+        chk.update({"mismatch_share": share,
+                    "one_pass_mismatch_share": control})
+    return (q, k, v), chk
+
+
+def _flash_refusals():
+    """bf16 operands TMA cannot take raise ValueError naming the reason,
+    and launch nothing: a base address off 16 bytes, and a head stride of
+    65 elements (130 bytes)."""
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    ok = torch.zeros((1, 128, 2, 64), device="cuda", dtype=bf)
+    off = torch.zeros((1, 128, 2, 65), device="cuda", dtype=bf)[..., 1:]
+    odd = torch.zeros((1, 128, 16, 65), device="cuda", dtype=bf)[
+        :, :, :2, :64]
+    cases = {"base address": (off, ok, ok), "head stride": (ok, odd, ok)}
+    before = flash_launches(bf)
+    for reason, (q, k, v) in cases.items():
+        try:
+            ops.flash_attention_bshd(q, k, v)
+        except ValueError as e:
+            if reason not in str(e) or "16 bytes" not in str(e):
+                raise AssertionError(f"flash refusal: {reason!r} raised "
+                                     f"{e!r}") from e
+        else:
+            raise AssertionError(f"flash refusal: {reason} was accepted")
+    if flash_launches(bf) != before:
+        raise AssertionError("flash refusal: a refused call was counted")
+    return sorted(cases)
 
 
 def kernel_flash(rates, gen):
-    """flash_attention against flash_ref at tests/test_flash.py's shapes
-    (S = 300 for the padding, bq = bk = 128) in f32 and bf16, every head
-    dim of the dense configs, S != T and a full (non-causal) call, and at
-    every prefill shape the model phases give it: gemma-2b's B = 4,
-    S = 2048 and 1 x 8192 (H = 8, KV = 1, hd = 256, bf16), its contract's
-    4 x 1023, the f32 2-layer run's 2 x 256 .. 263, nemotron-4-15b's
-    1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128), and hd = 192
-    (nemotron-4-340b's, G = 12); times of the kernel, the plain version
-    and SDPA beside the card's least time."""
+    """flash_attention against flash_ref on both routes (bf16 and f16 on
+    the tensor-core kernel, f32 on the SIMT one): tests/test_flash.py's
+    shapes (S = 300 for the padding, bq = bk = 128), every head dim of the
+    dense configs in all three types, S != T and a full (non-causal) call
+    in all three, a strided 16-bit view whose rows TMA can take, and the
+    refusal of two that it cannot; and every prefill shape the model
+    phases give it: gemma-2b's B = 4, S = 2048 and 1 x 8192 (H = 8,
+    KV = 1, hd = 256, bf16), its contract's 4 x 1023, the f32 2-layer
+    run's 2 x 256 .. 263, nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48,
+    KV = 8, hd = 128), and hd = 192 (nemotron-4-340b's, G = 12); times of
+    each route's kernel, the plain version and SDPA beside the card's
+    least time."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
     checks = []
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     for (H, KV, S, hd) in [(4, 4, 256, 64), (8, 2, 256, 128), (4, 1, 300, 64),
                            (2, 2, 512, 32)]:
-        for dt in (f32, bf):
+        for dt in (f32, bf, f16):
             checks.append(_flash_case(gen, 1, S, H, KV, hd, dt, bq=128,
                                       bk=128)[1])
     for hd in flash.HEAD_DIMS:
-        for dt in (f32, bf):
+        for dt in (f32, bf, f16):
             checks.append(_flash_case(gen, 2, 300, 6, 2, hd, dt)[1])
     for (S, T, causal) in [(128, 256, True), (256, 100, True),
-                           (200, 256, False)]:
-        checks.append(_flash_case(gen, 2, S, 4, 2, 64, f32, T=T,
-                                  causal=causal, bk=64)[1])
+                           (200, 256, False), (300, 77, True)]:
+        for dt in (f32, bf, f16):
+            checks.append(_flash_case(gen, 2, S, 4, 2, 64, dt, T=T,
+                                      causal=causal, bk=64)[1])
+    for dt in (bf, f16):
+        checks.append(_flash_case(gen, 2, 200, 4, 2, 64, dt,
+                                  strided=True)[1])
+        checks.append(_flash_case(gen, 2, 200, 4, 2, 128, dt, causal=False,
+                                  bk=200, strided=True)[1])
     checks.append(_flash_case(gen, 1, 1024, 24, 2, 192, bf)[1])
     # the other prefills of the model phases (the timed ones follow)
     for (B, S, H, KV, hd, dt) in [(1, 8192, 8, 1, 256, bf),
@@ -876,17 +989,21 @@ def kernel_flash(rates, gen):
                                   (1, 1023, 48, 8, 128, bf)]:
         checks.append(_flash_case(gen, B, S, H, KV, hd, dt)[1])
         torch.cuda.empty_cache()
+    refusals = _flash_refusals()
 
     def timed(gen, B, S, H, KV, hd, dt, reps):
         (q, k, v), chk = _flash_case(gen, B, S, H, KV, hd, dt)
         esz = q.element_size()
+        # the function's operations; the bound counts no more
         flops = 4.0 * B * H * hd * S * (S + 1) / 2
         nbytes = esz * hd * (2 * B * S * H + 2 * B * S * KV)
+        route = flash.route(dt)
         bound, by = bound_ms(flops, nbytes,
-                             "bf16" if dt == bf else "f32", rates)
+                             "bf16" if route == "flash_tc" else "f32", rates)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = cuda_ms(lambda: flash.flash_attention_bshd(q, k, v), reps=reps)
-        return chk, {
+        line = {
+            "route": route,
             "max_abs_err": chk["max_abs_err"],
             "tol": f"{_FLASH_TOL} = {chk['atol']:g}; {_FLASH_DATA_TOL} "
                    f"= {chk['data_atol']:g}",
@@ -899,15 +1016,26 @@ def kernel_flash(rates, gen):
                        "enable_gqa=True) on [B, H, S, hd] views",
             "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
             "tflop_per_s": flops / ms / 1e9,
-            "shape": [B, S, H, KV, hd],
-            "dtype": "bf16" if dt == bf else "f32"}
+            "shape": [B, S, H, KV, hd], "dtype": _TNAME[dt]}
+        if route == "flash_tc":
+            # the kernel's own cost: p v runs twice (p_hi and p_lo), 1.5x
+            # the function's tensor-core work, for a p of f32 accuracy
+            split = 1.5
+            line.update({
+                "split_work_factor": split,
+                "tensor_tflop_per_s": split * flops / ms / 1e9,
+                "mismatch_share": chk["mismatch_share"],
+                "one_pass_mismatch_share": chk["one_pass_mismatch_share"]})
+        return chk, line
 
-    main_chk, main = timed(gen, 4, 2048, 8, 1, 256, bf, 10)
+    main_chk, main = timed(gen, 4, 2048, 8, 1, 256, bf, 20)
+    f16_chk, f16_t = timed(gen, 4, 2048, 8, 1, 256, f16, 20)
     f32_chk, f32_t = timed(gen, 4, 2048, 8, 1, 256, f32, 10)
-    gqa_chk, gqa = timed(gen, 1, 4096, 48, 8, 128, bf, 5)
-    checks += [main_chk, f32_chk, gqa_chk]
+    gqa_chk, gqa = timed(gen, 1, 4096, 48, 8, 128, bf, 20)
+    checks += [main_chk, f16_chk, f32_chk, gqa_chk]
     torch.cuda.empty_cache()
-    return checks, {**main, "f32": f32_t, "nemotron-4-15b": gqa}
+    return checks, {**main, "f16": f16_t, "f32": f32_t,
+                    "nemotron-4-15b": gqa, "refusals": refusals}
 
 
 # ---------------------------------------------------------------------------
@@ -1295,7 +1423,8 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64",
 # phase 5: solve serving
 # ---------------------------------------------------------------------------
 #: kernel-name fragments of the profiler's device events, by port kernel
-_SPANS = (("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
+_SPANS = (("flash_tc", "flash_attention"),
+          ("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("qgemm_kernel", "qgemm"), ("round_rows", "panel_update"),
           ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
           ("commit", "panel_update"), ("residual_kernel", "residual_fused"),
@@ -1497,31 +1626,27 @@ def _prompt(cfg, batch, length, seed):
                          device="cuda")
 
 
-def _flash_count():
-    from repro_torch.kernels import ops
-    return ops.LAUNCHES["flash_attention"]
-
-
 def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
                  seed, note=None, profile=False):
     """One request batch of random prompts through ``generate`` (greedy),
     then the same loop timed: prefill_step by CUDA events, each serve_step
     on the host clock between synchronizations; with ``profile``, one more
     prefill and decode step under torch.profiler. Every prefill must
-    launch flash_attention once per layer; every logit must be finite."""
+    launch flash_attention once per layer, on the route of the model's
+    dtype; every logit must be finite."""
     from repro_torch import serve
     from repro_torch.models import transformer as T
     prompt = {"tokens": _prompt(cfg, batch, prompt_len, seed)}
     L = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = _flash_count()
+    before = flash_launches(cfg.adt)
     t0 = time.perf_counter()
     out = serve.generate(params, prompt, cfg, n_tokens=n_new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    flash_gen = _flash_count() - before
+    flash_gen = flash_launches(cfg.adt) - before
     what = f"{label} {cfg.name} B={batch} S={prompt_len}"
     if flash_gen != L:
         raise AssertionError(f"{what}: generate launched flash_attention "
@@ -1530,13 +1655,13 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
             or int(out.max()) >= cfg.vocab):
         raise AssertionError(f"{what}: bad tokens {tuple(out.shape)}")
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    before = _flash_count()
+    before = flash_launches(cfg.adt)
     start.record()
     last, caches = serve.prefill_step(params, prompt, cfg)
     stop.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(stop)
-    flash_prefill = _flash_count() - before
+    flash_prefill = flash_launches(cfg.adt) - before
     if flash_prefill != L:
         raise AssertionError(f"{what}: prefill launched flash_attention "
                              f"{flash_prefill} times, not {L}")
@@ -1715,6 +1840,7 @@ def main() -> int:
         results[name] = timing
         emit({"phase": "kernel", "name": name, **timing,
               "checks": checks, "phase_s": time.perf_counter() - t0})
+    results["flash_attention_f32"] = results["flash_attention"]["f32"]
 
     # each driven path runs with fresh counts and must launch its kernels;
     # the kernels line sums the paths' counts
@@ -1724,7 +1850,7 @@ def main() -> int:
         ops.reset_launches()
         for run in runs:
             emit(run())
-        got = dict(ops.LAUNCHES)
+        got = launch_counts()
         for k in kernels:
             if got[k] == 0:
                 raise AssertionError(f"{k} was not launched on the {label} "
@@ -1779,7 +1905,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cfg, params, gib = _model("gemma-2b", 920, n_layers=2,
                               param_dtype="f32", activ_dtype="f32")
-    drive("token_exact_f32", ("flash_attention",),
+    drive("token_exact_f32", ("flash_attention_f32",),
           [lambda: token_exact("token_exact_f32", cfg, params, 2, 256, 8,
                                921),
            lambda: decode_contract("token_exact_f32", cfg, params, 2, 256,

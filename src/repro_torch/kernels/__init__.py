@@ -12,7 +12,9 @@ Modules:
   syrk.py   — syrk_leaf, syrk_packed: lower-triangle C + A A^T
               (csrc/syrk.cu)
   flash.py  — flash_attention_bshd: causal GQA attention of the model
-              zoo's prefill (csrc/flash.cu)
+              zoo's prefill; bf16/f16 on the tensor cores
+              (csrc/flash_tc.cuh, flash_tc_bf16.cu, flash_tc_f16.cu), f32
+              on the CUDA cores (csrc/flash.cu)
   _build.py — nvcc build at first use, ctypes loading
 
 Importing this package builds nothing: the kernels are compiled at their

@@ -210,3 +210,24 @@ __device__ void gemm_block(Tacc (&acc)[4][4], const Tin* __restrict__ A, ll sam,
 // Launch-error convention of every C entry point: return the launch's
 // cudaError_t (0 on success) so the Python wrapper can raise.
 #define RETURN_LAUNCH_STATUS() return (int)cudaGetLastError()
+
+// Head-dim dispatch of the attention entry points: returns the call, an
+// expression in the constant HD, at HD = hd for each head dim of the dense
+// configs (16 and 32 for the smoke configs, 64, 128, 192, 256), and
+// cudaErrorInvalidValue for any other hd.
+#define HEAD_DIM_CASE(D, ...) \
+  case D: {                   \
+    constexpr int HD = D;     \
+    return __VA_ARGS__;       \
+  }
+#define DISPATCH_HEAD_DIM(hd, ...)                                                         \
+  switch (hd) {                                                                            \
+    HEAD_DIM_CASE(16, __VA_ARGS__)                                                         \
+    HEAD_DIM_CASE(32, __VA_ARGS__)                                                         \
+    HEAD_DIM_CASE(64, __VA_ARGS__)                                                         \
+    HEAD_DIM_CASE(128, __VA_ARGS__)                                                        \
+    HEAD_DIM_CASE(192, __VA_ARGS__)                                                        \
+    HEAD_DIM_CASE(256, __VA_ARGS__)                                                        \
+    default:                                                                               \
+      return (int)cudaErrorInvalidValue;                                                   \
+  }

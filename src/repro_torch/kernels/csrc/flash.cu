@@ -1,8 +1,11 @@
-// flash_attention: causal (or full) GQA attention with an online softmax.
+// flash_attention, the f32 route: causal (or full) GQA attention with an
+// online softmax in IEEE f32 on the CUDA cores.
 //
 // Replaces the Pallas kernel repro/kernels/flash.py:flash_attention (and its
 // batched wrapper flash_attention_bshd), the prefill attention of the model
-// zoo's dense family (models/attention.py). q is [B, S, H, hd], k and v are
+// zoo's dense family (models/attention.py), for f32 operands; bf16 and f16
+// operands go to the tensor-core kernel in flash_tc.cuh (kernels/flash.py
+// routes by dtype). q is [B, S, H, hd], k and v are
 // [B, T, KV, hd] with H = KV * G; query head h reads kv head h / G, so
 // repeated K/V are never materialized. Every operand is read, and the
 // output written, through its batch, sequence and head strides with a unit
@@ -15,14 +18,13 @@
 // mask is top-left aligned, both indices from 0, also when S != T) and where
 // k_index >= T; the running max m, corr = exp(m_prev - m_new), the row sum l
 // and the accumulator acc all in f32, with p kept in f32 for p v; the output
-// acc / max(l, 1e-30), rounded once to q's dtype. Inputs are f32, bf16 or
-// f16 and are widened to f32 as they are read.
+// acc / max(l, 1e-30).
 //
 // Bound on this card: at the model's prefill shapes the work is
 // 4 B H hd S (S + 1) / 2 operations (the causal half of QK^T and PV) on
-// 2 (B S H + 2 B T KV) hd bytes: at gemma-2b's B = 4, S = 2048, H = 8,
-// hd = 256 that is 68.7 GFLOP on 42 MB, so operations bound it (0.07 ms at
-// the bf16 tensor-core peak, 1.0 ms at the f32 CUDA-core rate).
+// 4 (B S H + 2 B T KV) hd bytes: at gemma-2b's B = 4, S = 2048, H = 8,
+// hd = 256 that is 68.7 GFLOP on 84 MB, so operations bound it (1.0 ms at
+// the f32 CUDA-core rate).
 //
 // Design, simple and right first: one CTA of 256 threads per (batch * head,
 // 64-row q block). The q tile, pre-scaled in f32, stays in shared memory
@@ -35,9 +37,9 @@
 // columns tx + 16 c, all in registers, with f32 SIMT FMAs; the row max and
 // sum are reduced across the 16 threads of a row with shuffles. At hd = 256
 // the shared memory is 146 KiB (the q tile and the k/v buffer 65 KiB each,
-// p 16 KiB), above the 48 KiB default, hence cudaFuncSetAttribute. The
-// tensor cores (wgmma on bf16 tiles, p rounded to bf16) and TMA are later
-// work: they change the numerics, so they are not this kernel.
+// p 16 KiB), above the 48 KiB default, hence cudaFuncSetAttribute. f32 on
+// the tensor cores (TF32) would round q, k, p and v to 10 bits, so this
+// route stays on the CUDA cores.
 #include "common.cuh"
 
 namespace {
@@ -46,32 +48,16 @@ constexpr int FB_Q = 64, FB_K = 64, F_THREADS = 256;
 constexpr int LQ = FB_Q + 1, LK = FB_K + 1;  // padded rows: no bank conflicts
 constexpr float F_NEG_INF = -1e30f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-
 template <int HD> constexpr size_t smem_bytes() {
   return sizeof(float) * (HD * LQ + HD * LK + FB_Q * LK);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(F_THREADS, 1)
-flash_kernel(const T* __restrict__ q, ll qsb, ll qss, ll qsh,
-             const T* __restrict__ k, ll ksb, ll kss, ll ksh,
-             const T* __restrict__ v, ll vsb, ll vss, ll vsh,
-             T* __restrict__ o, ll osb, ll oss, ll osh,
+flash_kernel(const float* __restrict__ q, ll qsb, ll qss, ll qsh,
+             const float* __restrict__ k, ll ksb, ll kss, ll ksh,
+             const float* __restrict__ v, ll vsb, ll vss, ll vsh,
+             float* __restrict__ o, ll osb, ll oss, ll osh,
              int H, int G, int S, int Tk, float scale, int causal) {
   static_assert(HD % 16 == 0 && FB_K * HD <= HD * LK, "tile shapes");
   constexpr int NC = HD / 16;  // accumulator columns per thread
@@ -83,14 +69,14 @@ flash_kernel(const T* __restrict__ q, ll qsb, ll qss, ll qsh,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, kh = h / G;
   const int q0 = blockIdx.x * FB_Q;
-  const T* qp = q + b * qsb + h * qsh;
-  const T* kp = k + b * ksb + kh * ksh;
-  const T* vp = v + b * vsb + kh * vsh;
+  const float* qp = q + b * qsb + h * qsh;
+  const float* kp = k + b * ksb + kh * ksh;
+  const float* vp = v + b * vsb + kh * vsh;
 
   // q * scale rounded in f32, as the reference scales before its product
   for (int e = tid; e < FB_Q * HD; e += F_THREADS) {
     const int i = e / HD, d = e - i * HD, gi = q0 + i;
-    Qt[d * LQ + i] = gi < S ? to_f(qp[(ll)gi * qss + d]) * scale : 0.f;
+    Qt[d * LQ + i] = gi < S ? qp[(ll)gi * qss + d] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][NC];
@@ -108,7 +94,7 @@ flash_kernel(const T* __restrict__ q, ll qsb, ll qss, ll qsh,
     __syncthreads();  // Qt written; the previous block's V and p read
     for (int e = tid; e < FB_K * HD; e += F_THREADS) {
       const int j = e / HD, d = e - j * HD, gj = k0 + j;
-      KV[d * LK + j] = gj < Tk ? to_f(kp[(ll)gj * kss + d]) : 0.f;
+      KV[d * LK + j] = gj < Tk ? kp[(ll)gj * kss + d] : 0.f;
     }
     __syncthreads();
 
@@ -164,7 +150,7 @@ flash_kernel(const T* __restrict__ q, ll qsb, ll qss, ll qsh,
 
     for (int e = tid; e < FB_K * HD; e += F_THREADS) {
       const int j = e / HD, d = e - j * HD, gj = k0 + j;
-      KV[j * HD + d] = gj < Tk ? to_f(vp[(ll)gj * vss + d]) : 0.f;
+      KV[j * HD + d] = gj < Tk ? vp[(ll)gj * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -182,18 +168,18 @@ flash_kernel(const T* __restrict__ q, ll qsb, ll qss, ll qsh,
     }
   }
 
-  T* op = o + b * osb + h * osh;
+  float* op = o + b * osb + h * osh;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty + 16 * r;
     if (qi >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) op[(ll)qi * oss + tx + 16 * c] = from_f<T>(acc[r][c] / den);
+    for (int c = 0; c < NC; ++c) op[(ll)qi * oss + tx + 16 * c] = acc[r][c] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll kss, ll ksh,
            const void* v, ll vsb, ll vss, ll vsh, void* o, ll osb, ll oss, ll osh, int B,
            int H, int KV, int S, int Tk, float scale, int causal, cudaStream_t stream) {
@@ -201,48 +187,28 @@ int launch(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll kss,
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid((S + FB_Q - 1) / FB_Q, B * H);
-  flash_kernel<T, HD><<<grid, F_THREADS, smem, stream>>>(
-      (const T*)q, qsb, qss, qsh, (const T*)k, ksb, kss, ksh, (const T*)v, vsb, vss, vsh,
-      (T*)o, osb, oss, osh, H, H / KV, S, Tk, scale, causal);
+  flash_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
+      (const float*)q, qsb, qss, qsh, (const float*)k, ksb, kss, ksh, (const float*)v, vsb,
+      vss, vsh, (float*)o, osb, oss, osh, H, H / KV, S, Tk, scale, causal);
   RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-// hd is one of the dense configs' head dims: 16 and 32 (smoke configs), 64,
-// 128, 192, 256; any other returns cudaErrorInvalidValue.
-#define FLASH_ENTRY(NAME, T)                                                              \
-  extern "C" int NAME(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb,      \
-                      ll kss, ll ksh, const void* v, ll vsb, ll vss, ll vsh, void* o,    \
-                      ll osb, ll oss, ll osh, int B, int H, int KV, int S, int Tk,       \
-                      int hd, float scale, int causal, void* stream) {                   \
-    if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue; \
-    cudaStream_t st = (cudaStream_t)stream;                                               \
-    switch (hd) {                                                                         \
-      case 16: return launch<T, 16>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss, vsh, \
-                                    o, osb, oss, osh, B, H, KV, S, Tk, scale, causal, st); \
-      case 32: return launch<T, 32>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss, vsh, \
-                                    o, osb, oss, osh, B, H, KV, S, Tk, scale, causal, st); \
-      case 64: return launch<T, 64>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss, vsh, \
-                                    o, osb, oss, osh, B, H, KV, S, Tk, scale, causal, st); \
-      case 128: return launch<T, 128>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss,    \
-                                      vsh, o, osb, oss, osh, B, H, KV, S, Tk, scale,      \
-                                      causal, st);                                        \
-      case 192: return launch<T, 192>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss,    \
-                                      vsh, o, osb, oss, osh, B, H, KV, S, Tk, scale,      \
-                                      causal, st);                                        \
-      case 256: return launch<T, 256>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss,    \
-                                      vsh, o, osb, oss, osh, B, H, KV, S, Tk, scale,      \
-                                      causal, st);                                        \
-      default: return (int)cudaErrorInvalidValue;                                        \
-    }                                                                                     \
-  }
-
-FLASH_ENTRY(flash_attention_f32, float)
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
-FLASH_ENTRY(flash_attention_f16, __half)
+// hd is one of the dense configs' head dims (DISPATCH_HEAD_DIM); any other
+// returns cudaErrorInvalidValue.
+extern "C" int flash_attention_f32(const void* q, ll qsb, ll qss, ll qsh, const void* k,
+                                   ll ksb, ll kss, ll ksh, const void* v, ll vsb, ll vss,
+                                   ll vsh, void* o, ll osb, ll oss, ll osh, int B, int H,
+                                   int KV, int S, int Tk, int hd, float scale, int causal,
+                                   void* stream) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || H % KV) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  DISPATCH_HEAD_DIM(hd, launch<HD>(q, qsb, qss, qsh, k, ksb, kss, ksh, v, vsb, vss, vsh, o,
+                                   osb, oss, osh, B, H, KV, S, Tk, scale, causal, st))
+}

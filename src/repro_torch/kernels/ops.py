@@ -16,6 +16,10 @@ launches a kernel adds one (``panel_update`` and a split ``syrk_leaf``
 add one per call although they run several CUDA kernels; ``trsm``
 without ``linv`` adds one ``tri_inv_leaf`` and one ``trsm_leaf`` or
 ``qgemm``). Calls that run the plain version on the CPU add nothing.
+``flash_attention`` counts both of its routes as one kernel;
+``FLASH_ROUTES`` splits the same launches by ``flash.route`` of the
+operands' dtype: ``flash_tc`` (bf16 and f16, the tensor-core kernel) and
+``flash_simt`` (f32).
 
 A scale or beta may be a 0-d f32 tensor on the operands' device (the
 per-block quantization scales of the tree engine): the kernels read it
@@ -37,11 +41,13 @@ from repro_torch.kernels import trsm as _trsm
 LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
             "panel_update": 0, "residual_fused": 0, "trsm_leaf": 0,
             "syrk_leaf": 0, "syrk_packed": 0, "flash_attention": 0}
+FLASH_ROUTES = {"flash_tc": 0, "flash_simt": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FLASH_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_card(*xs) -> bool:
@@ -181,6 +187,8 @@ def flash_attention_bshd(q, k, v, *, causal=True, bq=_ref.FLASH_BQ,
     [B, S, H, hd]: one launch over B * H on the card. ``bq``/``bk`` set
     the plain version's blocks; the kernel walks its own."""
     if _on_card(q, k, v):
+        out = _flash.flash_attention_bshd(q, k, v, causal=causal, bk=bk)
         LAUNCHES["flash_attention"] += 1
-        return _flash.flash_attention_bshd(q, k, v, causal=causal, bk=bk)
+        FLASH_ROUTES[_flash.route(q.dtype)] += 1
+        return out
     return _ref.flash_ref(q, k, v, causal=causal, bq=bq, bk=bk)
