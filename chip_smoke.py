@@ -33,14 +33,25 @@ result line. Phases:
    same function (where there is one), beside the card's least time for that
    work. ``residual_fused`` is also checked for column independence,
    bitwise, and the triangular decode the kernels run against integer
-   arithmetic.
+   arithmetic. ``potrf_leaf`` and ``tri_inv_leaf`` run at b = 128, 256,
+   384 and 512 in f32 and 256 in f64 (both of their routes: the triangle
+   in shared memory, the tile starting in global memory), a repeated
+   call must give the same bits, and they are timed in f32 and f64
+   beside one SM's share of the card's rate; ``potrf_leaf`` also on a
+   strided view and in place, against ``cholesky_ex`` (no host sync) and
+   ``cholesky``;
+   ``tri_inv_leaf``'s batched entry on the 64 diagonal tiles of an
+   n = 16384 factor, read in place: each tile bitwise equal to a single
+   launch, a NaN tile leaving its neighbours' bits alone, timed against 64
+   single launches and one batched ``solve_triangular``.
 3. ``path``: the blocked engine's main path, ``cholesky_solve`` with 16
    right-hand sides and with one vector, at n = 16384 on the paper's
    §IV-A matrix, for the ladders pure_f32, bf16_f32, f16x3_f32 and
    int8_f32; factor and solve times, peak memory, the residual
    ||b - A x|| / ||b|| in f64 and each kernel's launch count, which must
-   match the schedule. Then bf16_f32 at n = 32768 and f32x3_f64 at
-   n = 4096.
+   match the schedule (``diag_tri_inv`` is one ``tri_inv_leaf`` launch for
+   its 64 tiles; ``ops.TILES`` must count them). Then bf16_f32 at
+   n = 32768 and f32x3_f64 at n = 4096.
 4. ``tree_path``: the same for ``engine="tree"`` (the paper's nested
    recursion), whose launches must match the schedule counted from the
    recursion and ``cfg.split``; each ladder's tree factor must lie within
@@ -66,7 +77,11 @@ result line. Phases:
    compared request for request.
 7. ``breakdown``: device time by kernel inside one factor and one
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
-   (torch.profiler), and the card's busy share of the wall time.
+   (torch.profiler), and the card's busy share of the wall time; every
+   profiled window must book a device event for each port launch that
+   ``ops.LAUNCHES`` counted in it. ``tree_qgemm_shapes``: the tree
+   factor's ``qgemm`` calls by shape and operand types, ranked by device
+   time, the top two timed against ``torch.addmm``.
 8. ``generate``: gemma-2b at full width and depth (18 layers, bf16,
    random weights drawn on the card from a seed) serves 4 prompts of 2048
    tokens with 32 new tokens each, greedy, and 1 prompt of 8192 tokens
@@ -187,12 +202,11 @@ def emit(obj) -> None:
 
 
 def card_rates(name: str) -> dict:
-    """Data-sheet peaks of the card (dense; CUDA cores for f32/f64, the
-    tensor cores for bf16)."""
+    """Data-sheet peaks of the card (dense; CUDA cores for f32, the tensor
+    cores for f64 (DMMA, twice the CUDA cores' f64 rate) and bf16)."""
     if "PCIe" in name:
-        return {"f32": 51e12, "f64": 25.5e12, "bf16": 756e12,
-                "bytes": 2.0e12}
-    return {"f32": 67e12, "f64": 33.5e12, "bf16": 989e12, "bytes": 3.35e12}
+        return {"f32": 51e12, "f64": 51e12, "bf16": 756e12, "bytes": 2.0e12}
+    return {"f32": 67e12, "f64": 67e12, "bf16": 989e12, "bytes": 3.35e12}
 
 
 def bound_ms(flops: float, nbytes: float, kind: str, rates: dict):
@@ -270,21 +284,63 @@ def main_tile(b, n, seed):
     return tile
 
 
+def leaf_bytes(b, esz):
+    """Bytes a leaf kernel must move: the input's lower triangle read once,
+    the full (b, b) output written once."""
+    return esz * (b * (b + 1) // 2 + b * b)
+
+
+def one_sm_ms(flops, kind, rates):
+    """flops at one SM's share of the card's rate (132 SMs): the yardstick
+    of a kernel that runs in one CTA."""
+    return flops / (rates[kind] / 132) * 1e3
+
+
+def _bitwise(what, got, want):
+    """Raise unless got and want hold the same bits (NaN included)."""
+    as_int = {4: torch.int32, 8: torch.int64}[got.element_size()]
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.equal(got.contiguous().view(as_int),
+                               want.contiguous().view(as_int))):
+        raise AssertionError(f"{what}: not bitwise equal")
+
+
 def kernel_potrf(rates, gen):
+    """potrf_leaf at every leaf size in f32 (128 .. 512: b <= 320 keeps the
+    triangle in shared memory, larger tiles start in global memory) and
+    at b = 256 in f64 (starts in global memory), a strided view, in place,
+    a repeated call bitwise, a tile that is not SPD; timed at the main
+    path's b = 256 in f32 and f64 beside cholesky_ex (no host sync) and
+    cholesky (which syncs)."""
     from repro_torch.kernels import potrf, ref
     checks = []
     for n in (128, 256, 384, 512):
         a = spd_tile(n, gen)
         want = ref.potrf_ref(a)
-        err, atol = check_scaled(f"potrf n={n}", potrf.potrf_leaf(a), want,
-                                 3e-4, 1e-6)
+        got = potrf.potrf_leaf(a)
+        err, atol = check_scaled(f"potrf n={n}", got, want, 3e-4, 1e-6)
+        _bitwise(f"potrf n={n} repeated", potrf.potrf_leaf(a), got)
         checks.append({"n": n, "dtype": "f32", "max_abs_err": err,
-                       "tol": f"rtol 3e-4 atol 1e-6 max|L| = {atol:g}"})
+                       "tol": f"rtol 3e-4 atol 1e-6 max|L| = {atol:g}",
+                       "repeat_bitwise": True})
     a64 = spd_tile(256, gen, torch.float64)
-    err, atol = check_scaled("potrf f64", potrf.potrf_leaf(a64),
-                             ref.potrf_ref(a64), 1e-10, 1e-12)
-    checks.append({"n": 256, "dtype": "f64", "max_abs_err": err,
-                   "tol": f"rtol 1e-10 atol 1e-12 max|L| = {atol:g}"})
+    got64 = potrf.potrf_leaf(a64)
+    err64, atol = check_scaled("potrf f64", got64, ref.potrf_ref(a64), 1e-10,
+                               1e-12)
+    _bitwise("potrf f64 repeated", potrf.potrf_leaf(a64), got64)
+    checks.append({"n": 256, "dtype": "f64", "max_abs_err": err64,
+                   "tol": f"rtol 1e-10 atol 1e-12 max|L| = {atol:g}",
+                   "repeat_bitwise": True})
+    # a (256, 256) view of a wider matrix (lda = 300), and in place
+    big = spd_tile(300, gen)
+    view = big[7:263, 7:263]
+    want = ref.potrf_ref(view)
+    err, _ = check_scaled("potrf strided", potrf.potrf_leaf(view), want,
+                          3e-4, 1e-6)
+    fresh = potrf.potrf_leaf(view.clone())
+    _bitwise("potrf in place", potrf.potrf_leaf(view, out=view), fresh)
+    checks.append({"n": 256, "case": "lda 300 view; out = a bitwise",
+                   "max_abs_err": err})
     bad = -spd_tile(128, gen)
     check_close("potrf not SPD", potrf.potrf_leaf(bad), ref.potrf_ref(bad),
                 0, 0)
@@ -296,30 +352,55 @@ def kernel_potrf(rates, gen):
     tile = main_tile(b, N_MAIN, 1)
     err, atol = check_scaled("potrf main", potrf.potrf_leaf(tile),
                              ref.potrf_ref(tile), 3e-4, 1e-6)
-    bound, by = bound_ms(b ** 3 / 3, 2 * 4 * b * b, "f32", rates)
+    bound, by = bound_ms(b ** 3 / 3, leaf_bytes(b, 4), "f32", rates)
+    t64 = main_tile(b, N_MAIN, 1).double()
+    f64 = {"ms": cuda_ms(lambda: potrf.potrf_leaf(t64)),
+           "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(t64)),
+           "library_cholesky_ms": cuda_ms(lambda: torch.linalg.cholesky(t64)),
+           "bound_ms": bound_ms(b ** 3 / 3, leaf_bytes(b, 8), "f64",
+                                rates)[0],
+           "one_sm_ms": one_sm_ms(b ** 3 / 3, "f64", rates),
+           "max_abs_err": err64}
     return checks, {
         "max_abs_err": err, "tol": f"rtol 3e-4 atol 1e-6 max|L| = {atol:g}",
         "ms": cuda_ms(lambda: potrf.potrf_leaf(tile)),
         "plain_ms": cuda_ms(lambda: ref.potrf_ref(tile)),
-        "library_ms": cuda_ms(lambda: torch.linalg.cholesky(tile)),
-        "bound_ms": bound, "bound_by": by, "shape": [b, b]}
+        "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(tile)),
+        "library": "torch.linalg.cholesky_ex",
+        "library_cholesky_ms": cuda_ms(lambda: torch.linalg.cholesky(tile)),
+        "bound_ms": bound, "bound_by": by,
+        "one_sm_ms": one_sm_ms(b ** 3 / 3, "f32", rates), "shape": [b, b],
+        "f64": f64}
 
 
 def kernel_tri_inv(rates, gen):
+    """tri_inv_leaf at every leaf size in f32 (b <= 256 in shared memory)
+    and at b = 256 in f64, a repeated call bitwise; the batched entry on
+    the 64 diagonal tiles of the n = 16384 blocked factor, read in place:
+    each tile bitwise equal to a single launch, a NaN tile leaving its
+    neighbours' bits alone; timed against 64 single launches and one
+    batched solve_triangular."""
+    import repro_torch as rt
     from repro_torch.kernels import potrf, ref
     checks = []
-    for n in (128, 256, 512):
+    for n in (128, 256, 384, 512):
         r = torch.randn((n, n), generator=gen, device="cuda")
         l = r.tril() + math.sqrt(n) * 4 * torch.eye(n, device="cuda")
-        err, atol = check_scaled(f"tri_inv n={n}", potrf.tri_inv_leaf(l),
-                                 ref.tri_inv_ref(l), 1e-4, 1e-6)
+        got = potrf.tri_inv_leaf(l)
+        err, atol = check_scaled(f"tri_inv n={n}", got, ref.tri_inv_ref(l),
+                                 1e-4, 1e-6)
+        _bitwise(f"tri_inv n={n} repeated", potrf.tri_inv_leaf(l), got)
         checks.append({"n": n, "dtype": "f32", "max_abs_err": err,
-                       "tol": f"rtol 1e-4 atol 1e-6 max|X| = {atol:g}"})
+                       "tol": f"rtol 1e-4 atol 1e-6 max|X| = {atol:g}",
+                       "repeat_bitwise": True})
     l64 = potrf.potrf_leaf(spd_tile(256, gen, torch.float64))
-    err, atol = check_scaled("tri_inv f64", potrf.tri_inv_leaf(l64),
-                             ref.tri_inv_ref(l64), 1e-10, 1e-12)
-    checks.append({"n": 256, "dtype": "f64", "max_abs_err": err,
-                   "tol": f"rtol 1e-10 atol 1e-12 max|X| = {atol:g}"})
+    got64 = potrf.tri_inv_leaf(l64)
+    err64, atol = check_scaled("tri_inv f64", got64, ref.tri_inv_ref(l64),
+                               1e-10, 1e-12)
+    _bitwise("tri_inv f64 repeated", potrf.tri_inv_leaf(l64), got64)
+    checks.append({"n": 256, "dtype": "f64", "max_abs_err": err64,
+                   "tol": f"rtol 1e-10 atol 1e-12 max|X| = {atol:g}",
+                   "repeat_bitwise": True})
     # main path: the inverse of the first diagonal tile's factor; its
     # diagonal is about 1/128 and its off-diagonal about 5e-7
     b = 256
@@ -327,14 +408,71 @@ def kernel_tri_inv(rates, gen):
     err, atol = check_scaled("tri_inv main", potrf.tri_inv_leaf(l),
                              ref.tri_inv_ref(l), 1e-4, 1e-6)
     eye = torch.eye(b, device="cuda")
-    bound, by = bound_ms(b ** 3 / 3, 2 * 4 * b * b, "f32", rates)
+    bound, by = bound_ms(b ** 3 / 3, leaf_bytes(b, 4), "f32", rates)
+    lf = l.double()
+    eye64 = eye.double()
+    f64 = {"ms": cuda_ms(lambda: potrf.tri_inv_leaf(lf)),
+           "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+               lf, eye64, upper=False)),
+           "bound_ms": bound_ms(b ** 3 / 3, leaf_bytes(b, 8), "f64",
+                                rates)[0],
+           "one_sm_ms": one_sm_ms(b ** 3 / 3, "f64", rates),
+           "max_abs_err": err64}
+    # the batched entry: the 64 diagonal tiles of the main path's factor
+    lp = rt.cholesky_padded(paper_matrix(N_MAIN, 3),
+                            rt.PAPER_CONFIGS["pure_f32"])
+    tiles = potrf.diag_tiles(lp, b)
+    T = tiles.shape[0]
+    got = potrf.tri_inv_leaf_batched(tiles)
+    singles = torch.empty_like(got)
+
+    def single_launches():
+        for t in range(T):
+            potrf.tri_inv_leaf(tiles[t], out=singles[t])
+
+    single_launches()
+    _bitwise("tri_inv batched == single", got, singles)
+    _bitwise("tri_inv batched repeated", potrf.tri_inv_leaf_batched(tiles),
+             got)
+    err_b, _ = check_scaled("tri_inv batched", got,
+                            torch.stack([ref.tri_inv_ref(tiles[t])
+                                         for t in range(T)]), 1e-4, 1e-6)
+    spoilt = lp.clone()
+    spoilt[b:2 * b, b:2 * b] = float("nan")
+    got_nan = potrf.tri_inv_leaf_batched(potrf.diag_tiles(spoilt, b))
+    keep = [t for t in range(T) if t != 1]
+    _bitwise("tri_inv batched NaN neighbours", got_nan[keep], got[keep])
+    if not bool(torch.isnan(got_nan[1].diagonal()).all()):
+        raise AssertionError("tri_inv batched: the NaN tile is not NaN")
+    checks.append({"case": f"batched, {T} diagonal tiles of the n = {N_MAIN}"
+                   " pure_f32 factor in place", "max_abs_err": err_b,
+                   "tol": "rtol 1e-4 atol 1e-6 max|X|",
+                   "batched_eq_single_bitwise": True,
+                   "repeat_bitwise": True,
+                   "nan_tile_neighbours_bitwise": True})
+    stack = tiles.contiguous()
+    eyes = eye.expand(T, b, b)
+    batched = {"tiles": T, "ms": cuda_ms(lambda: potrf.tri_inv_leaf_batched(
+                   tiles)),
+               "single_launches_ms": cuda_ms(single_launches, reps=5,
+                                             warmup=1),
+               "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+                   stack, eyes, upper=False)),
+               "library": "torch.linalg.solve_triangular((T, b, b), I)",
+               "bound_ms": bound_ms(T * b ** 3 / 3, T * leaf_bytes(b, 4),
+                                    "f32", rates)[0]}
+    del lp, spoilt
+    torch.cuda.empty_cache()
     return checks, {
         "max_abs_err": err, "tol": f"rtol 1e-4 atol 1e-6 max|X| = {atol:g}",
         "ms": cuda_ms(lambda: potrf.tri_inv_leaf(l)),
         "plain_ms": cuda_ms(lambda: ref.tri_inv_ref(l)),
         "library_ms": cuda_ms(
             lambda: torch.linalg.solve_triangular(l, eye, upper=False)),
-        "bound_ms": bound, "bound_by": by, "shape": [b, b]}
+        "library": "torch.linalg.solve_triangular(l, I)",
+        "bound_ms": bound, "bound_by": by,
+        "one_sm_ms": one_sm_ms(b ** 3 / 3, "f32", rates), "shape": [b, b],
+        "f64": f64, "batched": batched}
 
 
 def kernel_qgemm(rates, gen, n):
@@ -1065,14 +1203,17 @@ def path_run(name, n, seed):
     b16 = torch.randn((n, 16), generator=g, device="cuda", dtype=high)
     b1 = torch.randn((n,), generator=g, device="cuda", dtype=high)
     T = n // cfg.leaf
+    # T - 1 tri_inv_leaf in the factor, and diag_tri_inv's T tiles in one
+    # batched launch
     schedule = {**dict.fromkeys(ops.LAUNCHES, 0), "potrf_leaf": T,
-                "tri_inv_leaf": 2 * T - 1, "panel_update": T - 1,
+                "tri_inv_leaf": T, "panel_update": T - 1,
                 "qgemm": 2 * (2 * T - 1)}
     line = {"phase": "path", "ladder": name, "n": n, "leaf": cfg.leaf,
             "dtype": str(high).replace("torch.", "")}
     counts = {}
     for label, rhs in (("k16", b16), ("k1", b1)):
         before = dict(ops.LAUNCHES)
+        tiles_before = ops.TILES["tri_inv_leaf"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1084,6 +1225,10 @@ def path_run(name, n, seed):
         if got != schedule:
             raise AssertionError(f"{name} n={n} {label}: launches {got} "
                                  f"!= schedule {schedule}")
+        tiles = ops.TILES["tri_inv_leaf"] - tiles_before
+        if tiles != 2 * T - 1:
+            raise AssertionError(f"{name} n={n} {label}: {tiles} tiles "
+                                 f"inverted, not {2 * T - 1}")
         if not bool(torch.isfinite(x).all()) or x.shape != rhs.shape:
             raise AssertionError(f"{name} n={n} {label}: bad result")
         res = residual(a, x, rhs)
@@ -1094,6 +1239,7 @@ def path_run(name, n, seed):
                                          / 2 ** 30)
     line["launches_per_cholesky_solve"] = counts["k16"]
     line["schedule"] = schedule
+    line["tri_inv_tiles_per_cholesky_solve"] = 2 * T - 1
     # factor and solves timed apart by CUDA events (after the warm-up
     # above); these launches count too
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1423,6 +1569,8 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64",
 # phase 5: solve serving
 # ---------------------------------------------------------------------------
 #: kernel-name fragments of the profiler's device events, by port kernel
+#: (potrf_kernel<T, resident, vec> and tri_inv_kernel<T, resident, vec>,
+#: whose batched entry launches the same kernel over a grid of tiles)
 _SPANS = (("flash_tc", "flash_attention"),
           ("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("qgemm_kernel", "qgemm"), ("round_rows", "panel_update"),
@@ -1435,30 +1583,66 @@ _SPANS = (("flash_tc", "flash_attention"),
           ("xmma", "torch matmul (cuBLAS)"))
 
 
+#: launch counters whose kernels the profiler books under another one
+_BOOKED_AS = {"syrk_packed": "syrk_leaf"}
+#: empty kernels (torch.cuda._sleep, "spin_kernel") launched at the start
+#: of every profiled window. torch.profiler (2.11, on the H100) loses the
+#: first device events of a session, more the longer the process has run,
+#: whatever idle time comes before or after the work; these take the
+#: loss, and at least one of them must be booked
+_SENTINELS = 128
+
+
 def _profiled(fn):
     """fn() under torch.profiler: wall ms, device ms by port kernel (the
     rest as torch's matmuls and other torch ops), the number of device
     events (kernel launches, copies) and the device's busy share of the
-    wall time."""
+    wall time. The window opens with _SENTINELS empty kernels, left out
+    of every number. Every launch that ops.LAUNCHES counts in the window
+    runs at least one CUDA kernel, so a port kernel with fewer booked
+    device events than counted launches, or no sentinel booked, fails the
+    phase: the breakdown did not see all of the work."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(_SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by, events = {}, 0
+    by, booked, events, sentinels = {}, {}, 0, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in ev.key:
+            sentinels += ev.count
             continue
         key = next((k for frag, k in _SPANS if frag in ev.key),
                    "other (torch ops)")
         by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
+        booked[key] = booked.get(key, 0) + ev.count
         events += ev.count
+    launched = {}
+    for k, v in ops.LAUNCHES.items():
+        if v > before[k]:
+            key = _BOOKED_AS.get(k, k)
+            launched[key] = launched.get(key, 0) + v - before[k]
+    unseen = {k: {"launches": v, "device_events": booked.get(k, 0)}
+              for k, v in launched.items() if booked.get(k, 0) < v}
+    if unseen or not sentinels:
+        raise AssertionError(f"profiler booked fewer device events than "
+                             f"launches: {unseen}, sentinels {sentinels} "
+                             f"of {_SENTINELS}")
     busy = sum(by.values())
     return {"wall_ms": wall_ms, "device_ms_by_kernel": by,
-            "device_events": events,
+            "device_events": events, "launches": launched,
+            "sentinels_booked": sentinels,
             "device_busy_share": busy / wall_ms if by else None}
 
 
@@ -1576,6 +1760,67 @@ def breakdown(name, n, seed):
     del a, lp, lt
     torch.cuda.empty_cache()
     return line
+
+
+def tree_qgemm_shapes(name, n, seed, top=2):
+    """The tree factor's qgemm calls grouped by shape and operand types,
+    ranked by device time (CUDA events around each call of one factor);
+    the top shapes timed against torch.addmm on the same shapes, its
+    operands in f32 (qgemm's arithmetic: narrow operands widened, f32
+    accumulation, scale and beta in the epilogue)."""
+    import repro_torch as rt
+    from repro_torch.kernels import ops, qgemm
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS[name], engine="tree")
+    a = paper_matrix(n, seed)
+    rt.cholesky_padded(a, cfg)                       # warm
+    timed, inner = {}, ops.qgemm
+
+    def recording(x, y, scale=1.0, *, c=None, beta=0.0, trans_b=False,
+                  out_dtype=torch.float32, out=None):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        res = inner(x, y, scale, c=c, beta=beta, trans_b=trans_b,
+                    out_dtype=out_dtype, out=out)
+        stop.record()
+        key = (tuple(x.shape), tuple(y.shape), trans_b,
+               str(x.dtype).replace("torch.", ""),
+               str(y.dtype).replace("torch.", ""), c is not None)
+        timed.setdefault(key, []).append((start, stop))
+        return res
+
+    ops.qgemm = recording
+    try:
+        rt.cholesky_padded(a, cfg)
+    finally:
+        ops.qgemm = inner
+    torch.cuda.synchronize()
+    rows = sorted(({"a": list(k[0]), "b": list(k[1]), "trans_b": k[2],
+                    "dtypes": [k[3], k[4]], "c": k[5], "calls": len(v),
+                    "device_ms": sum(s0.elapsed_time(s1) for s0, s1 in v)}
+                   for k, v in timed.items()),
+                  key=lambda r: -r["device_ms"])
+    total = sum(r["device_ms"] for r in rows)
+    for r in rows[:top]:
+        (m, k), nn = r["a"], r["b"][0] if r["trans_b"] else r["b"][1]
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        x32 = torch.randn((m, k), generator=g, device="cuda")
+        y32 = torch.randn(tuple(r["b"]), generator=g, device="cuda")
+        c32 = torch.randn((m, nn), generator=g, device="cuda")
+        x = x32.to(getattr(torch, r["dtypes"][0]))
+        y = y32.to(getattr(torch, r["dtypes"][1]))
+        tb = r["trans_b"]
+        r["kernel_ms"] = cuda_ms(lambda: qgemm.qgemm(
+            x, y, -1.0, c=c32, beta=1.0, trans_b=tb), reps=10)
+        xw, yw = x.float(), (y.float().T if tb else y.float())
+        r["library_ms"] = cuda_ms(lambda: torch.addmm(c32, xw, yw, alpha=-1.0),
+                                  reps=10)
+        r["library"] = "torch.addmm(c, a, b, alpha=-1), operands in f32"
+    del a
+    torch.cuda.empty_cache()
+    return {"phase": "tree_qgemm_shapes", "ladder": name, "n": n,
+            "qgemm_device_ms": total, "calls": sum(r["calls"] for r in rows),
+            "shapes": rows[:8]}
 
 
 def cpu_agreement(name, n, seed, engine="blocked"):
@@ -1924,6 +2169,7 @@ def main() -> int:
               "skipped": f"{elapsed:.0f} s spent before it"})
     emit(path_run("f32x3_f64", 4096, 300))
     emit(breakdown("f16x3_f32", N_MAIN, 500))
+    emit(tree_qgemm_shapes("f16x3_f32", N_MAIN, 510))
     agree = [cpu_agreement(name, 2048, 400 + i, engine)
              for engine in ("blocked", "tree")
              for i, name in enumerate(ladders + ("f32x3_f64",))]

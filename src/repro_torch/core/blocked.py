@@ -25,6 +25,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.quantize import storage_round
 from repro_torch.core.tree import _sym_from_lower
 from repro_torch.kernels import ops
+from repro_torch.kernels.potrf import diag_tiles
 
 
 def _round(x, name: str, cfg: PrecisionConfig):
@@ -70,16 +71,19 @@ def blocked_potrf(a, cfg: PrecisionConfig, *, plan=None):
 def diag_tri_inv(l, cfg: PrecisionConfig):
     """Stacked inverses of the factor's diagonal leaf tiles, shape
     ``(T, leaf, leaf)`` in the ladder's high dtype; computed once per
-    factor and reused by both sweeps of every solve."""
+    factor and reused by both sweeps of every solve. On the card: one
+    launch for all T tiles, read in place when ``l`` is already in the high
+    dtype (else the T tiles alone are converted)."""
     n = l.shape[-1]
     b = cfg.leaf
     assert n % b == 0, (n, b)
     high = cfg.high_dtype
-    out = torch.empty((n // b, b, b), dtype=high, device=l.device)
-    for i in range(n // b):
-        ops.tri_inv(l[i * b:(i + 1) * b, i * b:(i + 1) * b].to(high),
-                    out=out[i])
-    return out
+    if l.stride(-1) != 1:
+        l = l.contiguous()
+    tiles = diag_tiles(l, b)
+    if tiles.dtype != high:
+        tiles = tiles.to(high, memory_format=torch.contiguous_format)
+    return ops.tri_inv_batched(tiles)
 
 
 def blocked_trsm_left(bmat, l, cfg: PrecisionConfig, *, trans: bool,

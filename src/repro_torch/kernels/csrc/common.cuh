@@ -1,7 +1,8 @@
 // Shared device code of the port's kernels: the per-tile rounding of the
 // precision plan, a block-wide absmax, the triangular tile-index decode
-// used by panel.cu and syrk.cu, and the tiled GEMM core used by qgemm.cu,
-// panel.cu and syrk.cu.
+// used by panel.cu and syrk.cu, the tiled GEMM core used by qgemm.cu,
+// panel.cu and syrk.cu, and the 32 x 32 block storage and register-blocked
+// block products of the leaf kernels potrf.cu and tri_inv.cu.
 //
 // All arithmetic is IEEE: the build passes no --use_fast_math, so `/` and
 // sqrt are correctly rounded and every rounding below matches the plain
@@ -205,6 +206,186 @@ __device__ void gemm_block(Tacc (&acc)[4][4], const Tin* __restrict__ A, ll sam,
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// Leaf tiles as 32 x 32 blocks (potrf.cu, tri_inv.cu). A block lives either
+// in shared memory, 32 elements a row with the 16-byte slots of row r
+// XOR-ed by r & 7 (so eight consecutive rows reading one logical slot, or
+// one row's eight slots, hit eight different bank groups), or in global
+// memory, row-major through a leading dimension. VEC says that global rows
+// may be read and written 16 bytes at a time (base and ld aligned).
+// ---------------------------------------------------------------------------
+constexpr int LB = 32;
+
+template <typename T> struct alignas(16) Vec { T e[16 / sizeof(T)]; };
+
+template <typename T, bool SMEM, bool VEC> struct Blk {
+  static constexpr int VW = 16 / sizeof(T);
+  // k-steps of the block products to unroll: all of them from shared
+  // memory in f32; fewer where hoisting every step's loads (global memory,
+  // f64) would run out of registers
+  static constexpr int KUNROLL = (SMEM && sizeof(T) == 4) ? LB / VW : 2;
+  T* p;
+  ll ld;
+  __device__ __forceinline__ ll off(int r, int c) const {
+    if constexpr (SMEM) return r * LB + (((c / VW) ^ (r & 7)) * VW) + c % VW;
+    else return (ll)r * ld + c;
+  }
+  __device__ __forceinline__ T& at(int r, int c) const { return p[off(r, c)]; }
+  // the VW elements of row r from column c on (c a multiple of VW)
+  __device__ __forceinline__ Vec<T> ldv(int r, int c) const {
+    if constexpr (SMEM || VEC) {
+      return *reinterpret_cast<const Vec<T>*>(p + off(r, c));
+    } else {
+      Vec<T> v;
+#pragma unroll
+      for (int i = 0; i < VW; ++i) v.e[i] = p[off(r, c + i)];
+      return v;
+    }
+  }
+  __device__ __forceinline__ void stv(int r, int c, const Vec<T>& v) const {
+    if constexpr (SMEM || VEC) {
+      *reinterpret_cast<Vec<T>*>(p + off(r, c)) = v;
+    } else {
+#pragma unroll
+      for (int i = 0; i < VW; ++i) p[off(r, c + i)] = v.e[i];
+    }
+  }
+};
+
+// The lower triangle of an (nb LB) x (nb LB) tile: in shared memory the
+// blocks (I, J), J <= I, packed row by row; in global memory the tile.
+template <typename T, bool SMEM, bool VEC> struct TriStore {
+  T* base;
+  ll ld;
+  __device__ __forceinline__ Blk<T, SMEM, VEC> blk(int I, int J) const {
+    if constexpr (SMEM) return {base + (ll)(I * (I + 1) / 2 + J) * (LB * LB), LB};
+    else return {base + (ll)I * LB * ld + (ll)J * LB, ld};
+  }
+};
+
+// Bytes of a packed shared-memory triangle of nb block rows.
+__host__ __device__ inline size_t tri_bytes(int nb, size_t elem) {
+  return (size_t)nb * (nb + 1) / 2 * LB * LB * elem;
+}
+
+// Row r, columns c .. c + VW - 1 of a global tile -> shared block slot, by
+// cp.async (16 bytes, VEC) or through registers.
+template <typename T, bool VEC, class B>
+__device__ __forceinline__ void copy_in(const B& dst, int r, int c, const T* src) {
+  if constexpr (VEC) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(&dst.at(r, c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else {
+#pragma unroll
+    for (int i = 0; i < B::VW; ++i) dst.at(r, c + i) = src[i];
+  }
+}
+__device__ __forceinline__ void copy_in_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Global row vector store (16 bytes when VEC).
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_row(T* dst, const Vec<T>& v) {
+  if constexpr (VEC) {
+    *reinterpret_cast<Vec<T>*>(dst) = v;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = v.e[i];
+  }
+}
+
+// C -= A B^T on one 32 x 32 block by 64 threads (q = 0 .. 63), each a 4 x 4
+// register micro-tile: rows tr + 8 r and columns tc + 8 c, a warp covering
+// the 8 row classes x 4 column classes. A quarter warp's 16-byte operand
+// reads are then two A rows (broadcasts) and four B rows of one logical
+// slot, all in distinct bank groups, and the warp's 32 scalar reads and
+// writes of C hit 32 banks. Each 16-byte k-step loads 4 + 4 vectors for
+// 16 VW multiply-adds. The sum runs over k in order and is subtracted once.
+template <typename T, class BC, class BO>
+__device__ __forceinline__ void nt_sub(const BC& C, const BO& A, const BO& B, int q) {
+  constexpr int VW = 16 / sizeof(T);
+  const int tr = (q & 31) >> 2, tc = ((q >> 5) << 2) | (q & 3);
+  T acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
+#pragma unroll(BO::KUNROLL)
+  for (int k = 0; k < LB; k += VW) {
+    Vec<T> a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = A.ldv(tr + 8 * r, k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[c] = B.ldv(tc + 8 * c, k);
+#pragma unroll
+    for (int kk = 0; kk < VW; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fma(a[r].e[kk], b[c].e[kk], acc[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) C.at(tr + 8 * r, tc + 8 * c) -= acc[r][c];
+}
+
+// acc += A B on one 32 x 32 block by 64 threads, each rows tr + 8 r and the
+// four contiguous columns 4 tc .. 4 tc + 3 (tr = q / 8, tc = q % 8): a
+// quarter warp reads one A row (a broadcast) and the eight slots of one B
+// row. Called once per K block, K ascending, so each sum's order is fixed.
+template <typename T, class BA, class BB>
+__device__ __forceinline__ void nn_acc(T (&acc)[4][4], const BA& A, const BB& B, int q) {
+  constexpr int VW = 16 / sizeof(T);
+  const int tr = q >> 3, tc = q & 7;
+#pragma unroll(BA::KUNROLL)
+  for (int k = 0; k < LB; k += VW) {
+    Vec<T> a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = A.ldv(tr + 8 * r, k);
+#pragma unroll
+    for (int kk = 0; kk < VW; ++kk) {
+      T bk[4];
+#pragma unroll
+      for (int v = 0; v < 4; v += VW) {
+        const Vec<T> x = B.ldv(k + kk, 4 * tc + v);
+#pragma unroll
+        for (int i = 0; i < VW; ++i) bk[v + i] = x.e[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fma(a[r].e[kk], bk[c], acc[r][c]);
+    }
+  }
+}
+
+// C = sign * acc on the micro-tile of nn_acc.
+template <typename T, class BC>
+__device__ __forceinline__ void nn_store(const BC& C, const T (&acc)[4][4], T sign, int q) {
+  constexpr int VW = 16 / sizeof(T);
+  const int tr = q >> 3, tc = q & 7;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int v = 0; v < 4; v += VW) {
+      Vec<T> x;
+#pragma unroll
+      for (int i = 0; i < VW; ++i) x.e[i] = sign * acc[r][v + i];
+      C.stv(tr + 8 * r, 4 * tc + v, x);
+    }
+}
+
+// Largest dynamic shared memory a block may have on the current device,
+// less what the leaf kernels declare statically.
+inline size_t leaf_smem_limit() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)optin - 256;
 }
 
 // Launch-error convention of every C entry point: return the launch's

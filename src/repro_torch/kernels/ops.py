@@ -15,7 +15,9 @@ layout the kernel does not take. There is no fallback.
 launches a kernel adds one (``panel_update`` and a split ``syrk_leaf``
 add one per call although they run several CUDA kernels; ``trsm``
 without ``linv`` adds one ``tri_inv_leaf`` and one ``trsm_leaf`` or
-``qgemm``). Calls that run the plain version on the CPU add nothing.
+``qgemm``; ``tri_inv_batched`` adds one ``tri_inv_leaf`` for its whole
+stack). ``TILES`` counts the tiles those ``tri_inv_leaf`` launches
+inverted. Calls that run the plain version on the CPU add nothing.
 ``flash_attention`` counts both of its routes as one kernel;
 ``FLASH_ROUTES`` splits the same launches by ``flash.route`` of the
 operands' dtype: ``flash_tc`` (bf16 and f16, the tensor-core kernel) and
@@ -42,10 +44,11 @@ LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
             "panel_update": 0, "residual_fused": 0, "trsm_leaf": 0,
             "syrk_leaf": 0, "syrk_packed": 0, "flash_attention": 0}
 FLASH_ROUTES = {"flash_tc": 0, "flash_simt": 0}
+TILES = {"tri_inv_leaf": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES):
+    for counts in (LAUNCHES, FLASH_ROUTES, TILES):
         for k in counts:
             counts[k] = 0
 
@@ -81,8 +84,24 @@ def tri_inv(l, *, out=None):
     """Inverse of a lower-triangular leaf tile."""
     if _on_card(l, out):
         LAUNCHES["tri_inv_leaf"] += 1
+        TILES["tri_inv_leaf"] += 1
         return _potrf.tri_inv_leaf(l, out=out)
     return _store(_ref.tri_inv_ref(l), out)
+
+
+def tri_inv_batched(tiles):
+    """Inverses of a (T, b, b) stack of lower-triangular tiles (a strided
+    view such as ``kernels.potrf.diag_tiles`` of a factor is read in place):
+    one launch of ``tri_inv_leaf`` on the card, one plain inverse a tile
+    on the CPU."""
+    if _on_card(tiles):
+        LAUNCHES["tri_inv_leaf"] += 1
+        TILES["tri_inv_leaf"] += tiles.shape[0]
+        return _potrf.tri_inv_leaf_batched(tiles)
+    out = torch.empty(tiles.shape, dtype=tiles.dtype, device=tiles.device)
+    for i in range(tiles.shape[0]):
+        out[i] = _ref.tri_inv_ref(tiles[i])
+    return out
 
 
 def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,

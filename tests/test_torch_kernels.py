@@ -129,6 +129,166 @@ def test_tri_inv_ref(jx, n):
                                rtol=1e-4, atol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# the block order of the potrf_leaf and tri_inv_leaf kernels, emulated in
+# plain torch (csrc/potrf.cu, csrc/tri_inv.cu; CPU)
+# ---------------------------------------------------------------------------
+_LB = 32
+
+
+def _potrf_block_order(a):
+    """Lower Cholesky factor in csrc/potrf.cu's order, in a's dtype:
+    32-wide right-looking panels; each diagonal block factored column by
+    column with r = rsqrt(pivot) (L[c][c] = pivot r, the column scaled by
+    r); the rows below solved against it by multiplying with 1 / L[c][c];
+    then the rank-32 update of every trailing block. NaN on and below the
+    diagonal if a pivot is not positive."""
+    b = a.shape[-1]
+    w = torch.tril(a.clone())
+    bad = False
+    for p in range(b // _LB):
+        s, below = slice(p * _LB, (p + 1) * _LB), slice((p + 1) * _LB, b)
+        d = w[s, s]
+        for c in range(_LB):
+            piv = d[c, c].clone()
+            bad |= not bool(piv > 0)
+            r = torch.rsqrt(piv)
+            d[c + 1:, c] *= r
+            d[c, c] = piv * r
+            d[c + 1:, c + 1:] -= torch.outer(d[c + 1:, c], d[c + 1:, c])
+        d.copy_(torch.tril(d))
+        x = w[below, s]
+        for c in range(_LB):
+            x[:, c] *= 1 / d[c, c]
+            x[:, c + 1:] -= x[:, c:c + 1] * d[c + 1:, c][None, :]
+        for j in range(p + 1, b // _LB):
+            cj = slice(j * _LB, (j + 1) * _LB)
+            w[j * _LB:, cj] -= w[j * _LB:, s] @ w[cj, s].T
+        w[below, below] = torch.tril(w[below, below])
+    return torch.full_like(w, float("nan")).tril() if bad else w
+
+
+def _tri_inv_block_order(l):
+    """Inverse of lower-triangular l in csrc/tri_inv.cu's order: each 32 x
+    32 diagonal block inverted by substitution (a column a lane,
+    multiplying by 1 / L[i][i]), then the doubling levels h = 1, 2, 4 ...
+    blocks: [[A, 0], [C, B]]^-1 = [[A^-1, 0], [-B^-1 (C A^-1), B^-1]]."""
+    b = l.shape[-1]
+    nb = b // _LB
+    x = torch.tril(l.clone())
+    for i in range(nb):
+        s = slice(i * _LB, (i + 1) * _LB)
+        d, y = x[s, s].clone(), torch.eye(_LB, dtype=l.dtype)
+        for r in range(_LB):
+            y[r] *= 1 / d[r, r]
+            y[r + 1:] -= d[r + 1:, r:r + 1] * y[r:r + 1]
+        x[s, s] = torch.tril(y)
+    h = 1
+    while h < nb:
+        for a0 in range(0, nb - h, 2 * h):
+            b0 = a0 + h
+            ab, bb = (slice(a0 * _LB, b0 * _LB),
+                      slice(b0 * _LB, min(b0 + h, nb) * _LB))
+            x[bb, ab] = -(x[bb, bb] @ (x[bb, ab] @ x[ab, ab]))
+        h *= 2
+    return x
+
+
+def _leaf_tile(kind, b):
+    """A diagonal tile of the paper's matrix at n = 16384 (symmetric
+    uniform(-1, 1), + n on the diagonal), or an SPD tile with eigenvalues
+    log-spaced over 1 .. 1e6 (condition number 1e6)."""
+    rng = np.random.default_rng(b)
+    if kind == "paper":
+        m = rng.uniform(-1, 1, (b, b))
+        return ((m + m.T) / 2 + 16384 * np.eye(b)).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((b, b)))
+    return ((q * np.logspace(0, 6, b)) @ q.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["paper", "cond1e6"])
+@pytest.mark.parametrize("b", [128, 256])
+def test_potrf_block_order_matches_reference(jx, b, kind):
+    """The kernel's order against the reference's plain potrf_ref at the
+    kernel's tolerance (rtol 3e-4, atol 1e-6 max|L|). On the tile of
+    condition 1e6 no f32 order meets that elementwise: the reference's own
+    f32 factor lies 15-20 times outside it from the exact (f64) factor,
+    so there the same rtol is taken normwise (both lie about 1.5e-5 from
+    the exact factor)."""
+    a = _leaf_tile(kind, b)
+    want = np.asarray(jx.ref.potrf_ref(jx.jnp.asarray(a)))
+    got = _potrf_block_order(torch.from_numpy(a)).numpy()
+    assert (np.triu(got, 1) == 0).all()
+    if kind == "paper":
+        np.testing.assert_allclose(got, want, rtol=3e-4,
+                                   atol=1e-6 * np.abs(want).max())
+    else:
+        assert np.linalg.norm(got - want) <= 3e-4 * np.linalg.norm(want)
+
+
+def test_potrf_block_order_not_spd_is_nan(jx):
+    a = _leaf_tile("paper", 128)
+    a[100, 100] = -1.0
+    want = np.asarray(jx.ref.potrf_ref(jx.jnp.asarray(a)))
+    got = _potrf_block_order(torch.from_numpy(a)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
+@pytest.mark.parametrize("kind", ["paper", "cond1e6"])
+@pytest.mark.parametrize("b", [128, 256])
+def test_tri_inv_block_order_matches_reference(jx, b, kind):
+    """The kernel's order against the reference's plain tri_inv_ref at the
+    kernel's tolerance (rtol 1e-4, atol 1e-6 max|X|), on the factor of
+    each tile (condition 1e3 for the tile of condition 1e6)."""
+    l = np.array(jx.ref.potrf_ref(jx.jnp.asarray(_leaf_tile(kind, b))))
+    want = np.asarray(jx.ref.tri_inv_ref(jx.jnp.asarray(l)))
+    got = _tri_inv_block_order(torch.from_numpy(l)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
+    assert (np.triu(got, 1) == 0).all()
+
+
+@pytest.mark.parametrize("name", ["pure_f32", "f32x3_f64"])
+def test_diag_tri_inv_batched_cpu(jx, name):
+    """diag_tri_inv (one batched call) on the CPU: bitwise the per-tile
+    tri_inv_ref loop it replaced, read in place (f32) or converted tile by
+    tile (f32 factor, f64 ladder); the f32 ladder also against the
+    reference's diag_tri_inv at test_tri_inv_ref's tolerance."""
+    import dataclasses
+
+    from repro_torch.core import PAPER_CONFIGS, cholesky_padded, diag_tri_inv
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], leaf=128)
+    rng = np.random.default_rng(21)
+    m = rng.uniform(-1, 1, (512, 512))
+    a = (m @ m.T + 512 * np.eye(512)).astype(np.float32)
+    l = cholesky_padded(a, dataclasses.replace(cfg, levels=("f32",)),
+                        device="cpu")
+    got = diag_tri_inv(l, cfg)
+    high = cfg.high_dtype
+    want = torch.stack([tref.tri_inv_ref(l[i:i + 128, i:i + 128].to(high))
+                        for i in range(0, 512, 128)])
+    assert got.dtype == high and torch.equal(got, want)
+    if name == "pure_f32":
+        from repro.core import PAPER_CONFIGS as RCONFIGS
+        from repro.core.blocked import diag_tri_inv as rdiag
+        rcfg = dataclasses.replace(RCONFIGS[name], leaf=128)
+        ref_inv = np.asarray(rdiag(jx.jnp.asarray(l.numpy()), rcfg))
+        np.testing.assert_allclose(got.numpy(), ref_inv, rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_diag_tiles_is_a_view():
+    l = torch.arange(512 * 512, dtype=torch.float32).reshape(512, 512)
+    tiles = potrf.diag_tiles(l, 128)
+    assert tiles.shape == (4, 128, 128)
+    assert tiles.untyped_storage().data_ptr() == l.untyped_storage().data_ptr()
+    for t in range(4):
+        assert torch.equal(tiles[t], l[t * 128:(t + 1) * 128,
+                                      t * 128:(t + 1) * 128])
+    with pytest.raises(ValueError):
+        potrf.diag_tiles(l[:, :500], 128)
+
+
 def _panel_case(levels, nt, seed=3, b=128):
     meta = build_plan((nt + 1) * b,
                       PrecisionConfig(levels=levels, leaf=b)).panel_meta(0)
@@ -373,7 +533,10 @@ def test_cpu_calls_count_no_launch():
     ops.trsm(torch.ones(128, 3), torch.eye(128), side="left")
     ops.syrk(torch.eye(128), torch.ones(128, 64), torch.tensor(0.5), 1.0)
     ops.syrk(torch.eye(100), torch.ones(100, 7), packed=True)
+    got = ops.tri_inv_batched(potrf.diag_tiles(4 * torch.eye(256), 128))
+    assert torch.equal(got, 0.25 * torch.eye(128).expand(2, 128, 128))
     assert set(ops.LAUNCHES.values()) == {0}
+    assert set(ops.TILES.values()) == {0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -382,6 +545,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         potrf.potrf_leaf(torch.eye(128))
     with pytest.raises(ValueError):
         potrf.tri_inv_leaf(torch.eye(128))
+    with pytest.raises(ValueError):
+        potrf.tri_inv_leaf_batched(torch.eye(128)[None])
     with pytest.raises(ValueError):
         qgemm.qgemm(torch.eye(64), torch.eye(64))
     with pytest.raises(ValueError):
@@ -419,18 +584,58 @@ def test_qgemm_kernel(card, dt):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [128, 256, 512])
-def test_potrf_tri_inv_kernels(card, n):
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("n", [128, 256, 384, 512])
+def test_potrf_tri_inv_kernels(card, n, dt):
+    """Both leaf kernels against their plain versions on either route
+    (shared-memory triangle or the tile in global memory), a strided view
+    and out = a, repeated calls bitwise; the batched inverse bitwise equal
+    to single launches, and a NaN tile in the batch leaving its
+    neighbours' bits alone. f32 at the tolerances above; f64 at rtol 1e-10
+    and atol 1e-12 of the result's largest entry."""
+    dtype = {"f32": torch.float32, "f64": torch.float64}[dt]
     rng = np.random.default_rng(n)
-    m = _rand(rng, (n, n))
-    a = torch.from_numpy(m @ m.T + n * np.eye(n, dtype=np.float32)).to(card)
+    m = _rand(rng, (n, n)).astype(np.float64)
+    a = torch.from_numpy(m @ m.T + n * np.eye(n)).to(card, dtype)
     l = potrf.potrf_leaf(a)
-    torch.testing.assert_close(l, tref.potrf_ref(a), rtol=3e-4,
-                               atol=3e-4 * n)
-    torch.testing.assert_close(potrf.tri_inv_leaf(l), tref.tri_inv_ref(l),
-                               rtol=1e-4, atol=1e-5)
+    want_l = tref.potrf_ref(a)
+
+    def close(got, want, rtol32, atol32):
+        if dt == "f32":
+            torch.testing.assert_close(got, want, rtol=rtol32, atol=atol32)
+        else:
+            torch.testing.assert_close(
+                got, want, rtol=1e-10,
+                atol=1e-12 * float(want.abs().max()))
+
+    close(l, want_l, 3e-4, 3e-4 * n)
+    assert torch.equal(potrf.potrf_leaf(a), l)
+    x = potrf.tri_inv_leaf(l)
+    close(x, tref.tri_inv_ref(l), 1e-4, 1e-5)
+    assert torch.equal(potrf.tri_inv_leaf(l), x)
+    assert torch.equal(torch.triu(x, 1), torch.zeros_like(x))
     bad = potrf.potrf_leaf(-a)
     assert torch.equal(torch.isnan(bad), torch.isnan(tref.potrf_ref(-a)))
+    # a strided view (lda = n + 9, unaligned start), and out = a
+    big = torch.zeros((n + 5, n + 9), dtype=dtype, device=card)
+    view = big[3:3 + n, 5:5 + n]
+    view.copy_(a)
+    lv = potrf.potrf_leaf(view)
+    close(lv, want_l, 3e-4, 3e-4 * n)
+    assert torch.equal(potrf.potrf_leaf(view, out=view), lv)
+    assert torch.equal(big[3:3 + n, 5:5 + n], lv)
+    # the batched inverse over the diagonal tiles of a (3n, 3n) matrix
+    lbig = torch.zeros((3 * n, 3 * n), dtype=dtype, device=card)
+    for t in range(3):
+        lbig[t * n:(t + 1) * n, t * n:(t + 1) * n] = l * (t + 1)
+    tiles = potrf.diag_tiles(lbig, n)
+    got = potrf.tri_inv_leaf_batched(tiles)
+    for t in range(3):
+        assert torch.equal(got[t], potrf.tri_inv_leaf(tiles[t]))
+    lbig[n:2 * n, n:2 * n] = float("nan")
+    got_nan = potrf.tri_inv_leaf_batched(potrf.diag_tiles(lbig, n))
+    assert torch.equal(got_nan[0], got[0]) and torch.equal(got_nan[2], got[2])
+    assert bool(torch.isnan(got_nan[1].diagonal()).all())
 
 
 @pytest.mark.gpu
