@@ -33,7 +33,19 @@ result line. Phases:
    same function (where there is one), beside the card's least time for that
    work. ``residual_fused`` is also checked for column independence,
    bitwise, and the triangular decode the kernels run against integer
-   arithmetic. ``potrf_leaf`` and ``tri_inv_leaf`` run at b = 128, 256,
+   arithmetic. ``qgemm`` on each of its routes (``ops.QGEMM_ROUTES``: the
+   tensor cores for f16, bf16 and int8, direct or after staging an
+   operand K-major; the CUDA cores' k-split, tile and narrow routes for
+   f32 and f64) at the tree factor's top shapes, with MN-major operands,
+   N = 1 and 7 and ragged shapes: int8 bitwise, the rest at the
+   data-scaled gamma tolerance; a repeat, and each column against the
+   full product for N in {1, 7, 16, 48} at shuffled positions, bitwise;
+   the scale read from the card and out = c. Every kernel's ``ms`` and
+   ``library_ms`` are CUDA events around calls from Python; ``qgemm`` and
+   ``syrk_leaf`` also give ``graph_ms`` and ``library_graph_ms``, the same
+   launches back to back in one CUDA graph, since their wrappers' host
+   time between calls is as long as a sweep-sized kernel. ``potrf_leaf``
+   and ``tri_inv_leaf`` run at b = 128, 256,
    384 and 512 in f32 and 256 in f64 (both of their routes: the triangle
    in shared memory, the tile starting in global memory), a repeated
    call must give the same bits, and they are timed in f32 and f64
@@ -79,9 +91,17 @@ result line. Phases:
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
    (torch.profiler), and the card's busy share of the wall time; every
    profiled window must book a device event for each port launch that
-   ``ops.LAUNCHES`` counted in it. ``tree_qgemm_shapes``: the tree
-   factor's ``qgemm`` calls by shape and operand types, ranked by device
-   time, the top two timed against ``torch.addmm``.
+   ``ops.LAUNCHES`` counted in it; beside them the vendor's f32
+   Cholesky, ``torch.linalg.cholesky_ex``, of the same matrix (the
+   paper's baseline; a yardstick, not a gate). ``tree_qgemm_shapes``
+   (f16x3_f32 and int8_f32): the tree factor's ``qgemm`` calls by shape,
+   operand types and route, ranked by device time, every 16-bit and int8
+   call required on the tensor cores, the top two timed against
+   ``torch.addmm`` unless the ``qgemm`` kernel line's ``tree_shapes``
+   times them already. ``factor_probe``: the
+   blocked f16x3_f32 factor at n = 16384 timed three times before the
+   kernel phases and again after them (the kernel phases capture CUDA
+   graphs), with the card's clock and power read beside it.
 8. ``generate``: gemma-2b at full width and depth (18 layers, bf16,
    random weights drawn on the card from a seed) serves 4 prompts of 2048
    tokens with 32 new tokens each, greedy, and 1 prompt of 8192 tokens
@@ -203,10 +223,13 @@ def emit(obj) -> None:
 
 def card_rates(name: str) -> dict:
     """Data-sheet peaks of the card (dense; CUDA cores for f32, the tensor
-    cores for f64 (DMMA, twice the CUDA cores' f64 rate) and bf16)."""
+    cores for f64 (DMMA, twice the CUDA cores' f64 rate), bf16 (and f16)
+    and int8)."""
     if "PCIe" in name:
-        return {"f32": 51e12, "f64": 51e12, "bf16": 756e12, "bytes": 2.0e12}
-    return {"f32": 67e12, "f64": 67e12, "bf16": 989e12, "bytes": 3.35e12}
+        return {"f32": 51e12, "f64": 51e12, "bf16": 756e12, "int8": 1513e12,
+                "bytes": 2.0e12}
+    return {"f32": 67e12, "f64": 67e12, "bf16": 989e12, "int8": 1979e12,
+            "bytes": 3.35e12}
 
 
 def bound_ms(flops: float, nbytes: float, kind: str, rates: dict):
@@ -231,6 +254,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() over reps launches captured in one CUDA
+    graph and replayed: the time of the kernels back to back, without the
+    host's time between calls (a port wrapper spends tens of microseconds
+    of Python per call, as long as a sweep-sized kernel takes)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
 
 
 def check_close(what, got, want, rtol, atol):
@@ -547,18 +594,231 @@ def kernel_qgemm(rates, gen, n):
     checks.append({"shape": [m, b, k], "case": "main path, A and A^T view",
                    "dtype": "f32", "max_abs_err": max(err, err_t),
                    "tol": "rtol 2e-4 atol 1e-4"})
+    checks += _qgemm_routes(gen)
     out = torch.empty_like(c)
     bound, by = bound_ms(2.0 * m * b * k, 4 * (m * b + b * k + 2 * m * k),
                          "f32", rates)
-    return checks, {
+    timed = {
         "max_abs_err": err, "tol": "rtol 2e-4 atol 1e-4",
         "ms": cuda_ms(lambda: qgemm.qgemm(lblk, xp, -1.0, c=c, beta=1.0,
                                           out=out)),
+        "graph_ms": graph_ms(lambda: qgemm.qgemm(lblk, xp, -1.0, c=c,
+                                                 beta=1.0, out=out)),
+        "ms_back_sweep_view": cuda_ms(lambda: qgemm.qgemm(
+            lt.T, xq, -1.0, c=cq, beta=1.0, out=cq)),
         "plain_ms": cuda_ms(lambda: ref.qgemm_ref(lblk, xp, scale=-1.0, c=c,
                                                   beta=1.0)),
         "library_ms": cuda_ms(lambda: torch.addmm(c, lblk, xp, beta=1.0,
                                                   alpha=-1.0, out=out)),
+        "library_graph_ms": graph_ms(lambda: torch.addmm(
+            c, lblk, xp, beta=1.0, alpha=-1.0, out=out)),
+        "timing": _TIMING,
+        "route": qgemm.launch(lblk, xp, -1.0, c=c, beta=1.0, out=out)[1].route,
         "bound_ms": bound, "bound_by": by, "shape": [m, b, k]}
+    timed["tree_shapes"] = _qgemm_tree_shapes(gen, rates)
+    return checks, timed
+
+
+#: how the small kernels' lines are timed
+_TIMING = ("ms, library_ms: CUDA events around 20 calls from Python (as "
+           "every kernel); graph_ms, library_graph_ms: the same launches in "
+           "one CUDA graph, without the host's time between calls")
+
+
+def _qgemm_gamma(a, bn, scale, c, beta, k, u=2.0 ** -24):
+    """_gamma_atol with the bound |scale| max(|A| |B|^T) + |beta| max|C|,
+    the data's own scale (|A| |B|^T in f32: every term is positive)."""
+    prod = float((a.float().abs() @ bn.float().abs().T).max())
+    return _gamma_atol(k, u, abs(scale) * prod
+                       + (abs(beta) * float(c.abs().max())
+                          if c is not None else 0.0))
+
+
+def _qgemm_operand(gen, rows, k, dt, major):
+    """A (rows, k) operand of type dt stored K-major or MN-major (its
+    transpose contiguous), values of a level's grid: int8 codes, or N(0, 1)
+    rounded to the 16-bit type."""
+    shape = (rows, k) if major == "k" else (k, rows)
+    if dt == torch.int8:
+        t = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+    else:
+        t = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return t if major == "k" else t.T
+
+
+#: (M, N, K, operand type, A major, B major, route) of the route cases:
+#: the tree factor's top shapes on each route, MN-major 16-bit operands (the
+#: left sweeps' l21^T), an MN-major int8 operand (staged: s8 wgmma reads
+#: K-major only), N = 1 and 7, ragged M, N and K (a K-major row of 333
+#: 16-bit values is off TMA's 16-byte grid: staged), a k-split whose
+#: scratch cap takes its 2300 columns in two blocks
+_QGEMM_ROUTE_CASES = [
+    (4096, 4096, 8192, "f16", "k", "k", "tc"),
+    (4096, 4096, 8192, "bf16", "k", "k", "tc"),
+    (4096, 4096, 8192, "int8", "k", "k", "tc"),
+    (256, 256, 8192, "f32", "k", "k", "simt_ksplit"),
+    (1024, 1024, 8192, "f32", "k", "k", "simt_ksplit"),
+    (8192, 256, 256, "f32", "k", "k", "simt_tile"),
+    (2048, 512, 2048, "f16", "mn", "mn", "tc"),
+    (2048, 512, 2048, "bf16", "mn", "k", "tc"),
+    (2048, 16, 2048, "f16", "mn", "mn", "tc"),
+    (2048, 512, 2048, "int8", "mn", "k", "tc_staged"),
+    (1000, 7, 333, "f16", "mn", "mn", "tc_staged"),
+    (1000, 1, 320, "bf16", "k", "mn", "tc"),
+    (1000, 1, 333, "bf16", "k", "mn", "tc_staged"),
+    (257, 129, 304, "int8", "k", "k", "tc"),
+    (301, 181, 203, "f32", "k", "k", "simt_tile"),
+    (4096, 16, 8192, "f32", "mn", "mn", "simt_narrow"),
+    (256, 2300, 8192, "f32", "k", "k", "simt_ksplit"),
+    (16128, 7, 256, "f32", "k", "mn", "simt_narrow"),
+    (300, 180, 200, "f64", "k", "k", "simt_tile"),
+    (300, 16, 200, "f64", "mn", "mn", "simt_narrow"),
+]
+_QGEMM_TYPES = {"f16": torch.float16, "bf16": torch.bfloat16,
+                "int8": torch.int8, "f32": torch.float32,
+                "f64": torch.float64}
+_QGEMM_TOL = ("atol 2(k+2) u (|scale| max(|A||B|^T) + |beta| max|C|), "
+              "u = 2^-24 (2^-53 f64): two sums of k products in other "
+              "orders (a wgmma's f32 accumulation need not round to "
+              "nearest)")
+
+
+def _qgemm_routes(gen):
+    """qgemm on each route (ops.qgemm, counted by ops.QGEMM_ROUTES) against
+    qgemm_ref; a repeat bitwise; columns of qgemm(a, b[:, cols]) bitwise
+    equal to the full product's for N in {1, 7, 16, 48} at shuffled
+    positions; the scale read from the card; out = c."""
+    from repro_torch.kernels import ops, qgemm, ref
+    checks = []
+    for (M, N, K, tn, am, bm, route) in _QGEMM_ROUTE_CASES:
+        dt = _QGEMM_TYPES[tn]
+        a = _qgemm_operand(gen, M, K, dt, am)
+        bn = _qgemm_operand(gen, N, K, dt, bm)      # B as its (N, K) view
+        od = qgemm.acc_dtype(dt)
+        c = torch.randn((M, N), generator=gen, device="cuda", dtype=od)
+        what = f"qgemm {tn} {M}x{N}x{K} A {am} B {bm}"
+        ops.reset_launches()
+        got = ops.qgemm(a, bn.T, 0.75, c=c, beta=-0.5, out_dtype=od)
+        took = [r for r, v in ops.QGEMM_ROUTES.items() if v]
+        if took != [route]:
+            raise AssertionError(f"{what}: took {took}, not {route}")
+        want = ref.qgemm_ref(a, bn.T, scale=0.75, c=c, beta=-0.5,
+                             out_dtype=od)
+        if dt == torch.int8:
+            _bitwise(what, got, want)
+            err, tol = 0.0, "bitwise (exact s32 accumulation)"
+        else:
+            atol = _qgemm_gamma(a, bn, 0.75, c, -0.5, K,
+                                _unit(dt, od))
+            err = check_close(what, got, want, 0, atol)
+            tol = f"{_QGEMM_TOL}: {atol:g}"
+        _bitwise(f"{what} repeat", ops.qgemm(a, bn.T, 0.75, c=c, beta=-0.5,
+                                             out_dtype=od), got)
+        perm = torch.randperm(N, generator=gen, device="cuda")
+        for n in (1, 7, 16, 48):
+            cols = perm[:min(n, N)]
+            sub = ops.qgemm(a, bn.T[:, cols].contiguous(), 0.75,
+                            c=c[:, cols].contiguous(), beta=-0.5,
+                            out_dtype=od)
+            _bitwise(f"{what} columns N={n}", sub, got[:, cols])
+        checks.append({"shape": [M, N, K], "dtype": tn, "a": am, "b": bm,
+                       "route": route, "max_abs_err": err, "tol": tol,
+                       "repeat_bitwise": True,
+                       "columns_bitwise_at_n": [1, 7, 16, 48]})
+    # the scale from device memory and out = c, on every operand type
+    for tn in ("f16", "bf16", "int8", "f32", "f64"):
+        dt = _QGEMM_TYPES[tn]
+        a = _qgemm_operand(gen, 256, 512, dt, "k")
+        bn = _qgemm_operand(gen, 192, 512, dt, "k")
+        od = qgemm.acc_dtype(dt)
+        c = torch.randn((256, 192), generator=gen, device="cuda", dtype=od)
+        s = torch.tensor(-0.3, device="cuda")     # an f32, read on the card
+        want = qgemm.qgemm(a, bn, float(s), c=c, beta=1.0, trans_b=True,
+                           out_dtype=od)
+        inplace = c.clone()
+        qgemm.qgemm(a, bn, s, c=inplace, beta=1.0, trans_b=True,
+                    out_dtype=od, out=inplace)
+        _bitwise(f"qgemm {tn} device scale, out = c", inplace, want)
+    checks.append({"case": "scale read from the card, out = c",
+                   "dtypes": ["f16", "bf16", "int8", "f32", "f64"],
+                   "bitwise_vs_host_scale": True})
+    return checks
+
+
+def _qgemm_library(x, y, c, tn):
+    """``library_ms`` (CUDA events), ``library_graph_ms`` and ``library``
+    of one PyTorch call computing the same function on the same operands
+    where there is one, else a labelled stand-in."""
+    def timed(fn, label):
+        return {"library_ms": cuda_ms(fn, reps=10),
+                "library_graph_ms": graph_ms(fn, 10), "library": label}
+    if tn == "int8":
+        try:
+            return timed(lambda: torch._int_mm(x, y.T),
+                         "torch._int_mm(a, b^T): s32 product without the "
+                         "epilogue")
+        except RuntimeError as exc:
+            return {"library_ms": None,
+                    "library": f"torch._int_mm refused: {exc}"[:200]}
+    if tn == "f32":
+        return timed(lambda: torch.addmm(c, x, y.T, alpha=-1.0),
+                     "torch.addmm(c, a, b^T, alpha=-1)")
+    try:
+        return timed(lambda: torch.addmm(c, x, y.T, alpha=-1.0,
+                                         out_dtype=torch.float32),
+                     "torch.addmm(c, a, b^T, alpha=-1, out_dtype=f32)")
+    except (TypeError, RuntimeError):
+        c16 = c.to(x.dtype)
+        return timed(lambda: torch.addmm(c16, x, y.T, alpha=-1.0),
+                     f"torch.addmm in {tn}: output in {tn}, speed only")
+
+
+#: (M, N, K, operand type) of the tree factor's top qgemm shapes at
+#: n = 16384, A B^T with both K-major, timed in the qgemm kernel line
+_TREE_TIMED = ((256, 256, 8192, "f32"), (4096, 4096, 8192, "f16"),
+               (4096, 4096, 8192, "bf16"), (4096, 4096, 8192, "int8"))
+
+
+def _qgemm_tree_shapes(gen, rates):
+    """The tree factor's top shapes on each route (the top two of
+    tree_qgemm_shapes' f16x3_f32 and int8_f32 tables), timed (CUDA events,
+    and graph_ms) beside their bound, the plain version, one library call
+    of the same function and addmm on the operands widened to f32."""
+    from repro_torch.kernels import qgemm, ref
+    rows = []
+    for (M, N, K, tn) in _TREE_TIMED:
+        dt = _QGEMM_TYPES[tn]
+        x = _qgemm_operand(gen, M, K, dt, "k")
+        y = _qgemm_operand(gen, N, K, dt, "k")
+        c = torch.randn((M, N), generator=gen, device="cuda")
+        out = torch.empty_like(c)
+        kind = {"f32": "f32", "int8": "int8"}.get(tn, "bf16")
+        bound, by = bound_ms(2.0 * M * N * K,
+                             x.element_size() * (M + N) * K + 8 * M * N,
+                             kind, rates)
+        xw, yw = x.float(), y.float()
+
+        def run():
+            return qgemm.qgemm(x, y, -1.0, c=c, beta=1.0, trans_b=True,
+                               out=out)
+        rows.append({
+            "shape": [M, N, K], "dtype": tn, "trans_b": True,
+            "route": qgemm.launch(x, y, -1.0, c=c, beta=1.0, trans_b=True,
+                                  out=out)[1].route,
+            "ms": cuda_ms(run, reps=10), "graph_ms": graph_ms(run, 10),
+            "bound_ms": bound, "bound_by": by,
+            "rate": f"{rates[kind] / 1e12:g} TFLOP/s ({kind})",
+            "plain_ms": cuda_ms(lambda: ref.qgemm_ref(
+                x, y, trans_b=True, scale=-1.0, c=c, beta=1.0), reps=2,
+                warmup=1),
+            **_qgemm_library(x, y, c, tn),
+            "addmm_f32_operands_ms": cuda_ms(lambda: torch.addmm(
+                c, xw, yw.T, alpha=-1.0), reps=10),
+            "timing": _TIMING})
+        del x, y, xw, yw, c, out
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _panel_inputs(gen, m, b, dtype=torch.float32, damp=1.0):
@@ -875,9 +1135,11 @@ def kernel_syrk_leaf(rates, gen):
                                     syrk.syrk_leaf, c, a, scale, 0.9)
             checks.append({"shape": [n, k], "dtype": tn, "max_abs_err": err,
                            "tol": f"{_SYRK_TOL} = {atol:g}",
-                           "chunks": syrk.leaf_chunk(n, k)[1],
+                           "chunks": syrk.leaf_chunk(
+                               n, k, syrk.leaf_block(a.dtype, c.dtype))[1],
                            "upper_kept_inplace_deterministic": True})
-    # timing: the main path's widest leaf, f32 (pure_f32) and bf16
+    # timing: the main path's widest leaf, f32 (every ladder's tree leaves)
+    # and bf16 (on the 64 x 64 core)
     n, k = 256, 8192
     timing = {}
     for tn in ("f32", "bf16"):
@@ -892,11 +1154,18 @@ def kernel_syrk_leaf(rates, gen):
         timing[tn] = {
             "max_abs_err": err, "tol": _SYRK_TOL,
             "ms": cuda_ms(lambda: syrk.syrk_leaf(c, a, -1.0, 1.0, out=out)),
+            "graph_ms": graph_ms(
+                lambda: syrk.syrk_leaf(c, a, -1.0, 1.0, out=out)),
             "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0)),
             "library_ms": cuda_ms(lambda: torch.addmm(c, af, af.T, beta=1.0,
                                                       alpha=-1.0, out=out)),
+            "library_graph_ms": graph_ms(lambda: torch.addmm(
+                c, af, af.T, beta=1.0, alpha=-1.0, out=out)),
             "library": "torch.addmm(c, a, a.T) in f32 (both triangles)",
-            "bound_ms": bound, "bound_by": by, "shape": [n, k], "dtype": tn}
+            "timing": _TIMING,
+            "bound_ms": bound, "bound_by": by, "shape": [n, k], "dtype": tn,
+            "chunks": syrk.leaf_chunk(n, k, syrk.leaf_block(a.dtype,
+                                                            c.dtype))}
     return checks, {**timing["f32"], "bf16": timing["bf16"]}
 
 
@@ -1243,11 +1512,22 @@ def path_run(name, n, seed):
     # factor and solves timed apart by CUDA events (after the warm-up
     # above); these launches count too
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    mem0 = torch.cuda.memory_stats()
+    t0 = time.perf_counter()
     start.record()
     lp = rt.cholesky_padded(a, cfg)
     stop.record()
     torch.cuda.synchronize()
     line["factor_ms"] = start.elapsed_time(stop)
+    # the host's view of the same call, and the caching allocator's device
+    # allocations and retries inside it (a factor_ms far above the device
+    # time of a profiled factor is the host or the allocator)
+    line["factor_host_ms"] = (time.perf_counter() - t0) * 1e3
+    mem1 = torch.cuda.memory_stats()
+    line["factor_allocator"] = {
+        k: mem1.get(k, 0) - mem0.get(k, 0)
+        for k in ("num_device_alloc", "num_device_free",
+                  "num_alloc_retries")}
     for label, rhs in (("k16", b16), ("k1", b1)):
         start.record()
         rt.solve_factored(lp, rhs, cfg)
@@ -1573,7 +1853,7 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64",
 #: whose batched entry launches the same kernel over a grid of tiles)
 _SPANS = (("flash_tc", "flash_attention"),
           ("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
-          ("qgemm_kernel", "qgemm"), ("round_rows", "panel_update"),
+          ("qgemm_", "qgemm"), ("round_rows", "panel_update"),
           ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
           ("commit", "panel_update"), ("residual_kernel", "residual_fused"),
           ("trsm_kernel", "trsm_leaf"), ("syrk_tiles", "syrk_leaf"),
@@ -1593,6 +1873,12 @@ _BOOKED_AS = {"syrk_packed": "syrk_leaf"}
 _SENTINELS = 128
 
 
+#: windows _profiled may take: torch.profiler now and then books no device
+#: event of a whole window, not even a sentinel; such a window is measured
+#: again, and only a window that booked all of its work is reported
+_PROFILE_ATTEMPTS = 3
+
+
 def _profiled(fn):
     """fn() under torch.profiler: wall ms, device ms by port kernel (the
     rest as torch's matmuls and other torch ops), the number of device
@@ -1600,8 +1886,23 @@ def _profiled(fn):
     wall time. The window opens with _SENTINELS empty kernels, left out
     of every number. Every launch that ops.LAUNCHES counts in the window
     runs at least one CUDA kernel, so a port kernel with fewer booked
-    device events than counted launches, or no sentinel booked, fails the
-    phase: the breakdown did not see all of the work."""
+    device events than counted launches, or no sentinel booked, means the
+    breakdown did not see all of the work: the window is run again, up to
+    _PROFILE_ATTEMPTS windows, and the phase fails if none saw it all.
+    The lost windows are listed in the line."""
+    lost = []
+    for _ in range(_PROFILE_ATTEMPTS):
+        line, missing = _profile_window(fn)
+        if missing is None:
+            return {**line, "lost_windows": lost}
+        lost.append(missing)
+    raise AssertionError(f"profiler booked fewer device events than "
+                         f"launches in {len(lost)} windows: {lost}")
+
+
+def _profile_window(fn):
+    """One window of _profiled: (its line, None), or (its line, what the
+    profiler missed)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -1635,15 +1936,14 @@ def _profiled(fn):
             launched[key] = launched.get(key, 0) + v - before[k]
     unseen = {k: {"launches": v, "device_events": booked.get(k, 0)}
               for k, v in launched.items() if booked.get(k, 0) < v}
-    if unseen or not sentinels:
-        raise AssertionError(f"profiler booked fewer device events than "
-                             f"launches: {unseen}, sentinels {sentinels} "
-                             f"of {_SENTINELS}")
     busy = sum(by.values())
-    return {"wall_ms": wall_ms, "device_ms_by_kernel": by,
+    line = {"wall_ms": wall_ms, "device_ms_by_kernel": by,
             "device_events": events, "launches": launched,
             "sentinels_booked": sentinels,
             "device_busy_share": busy / wall_ms if by else None}
+    if unseen or not sentinels:
+        return line, {"unseen": unseen, "sentinels": sentinels}
+    return line, None
 
 
 def serve_phase(n, seed, requests=48, slots=16):
@@ -1739,10 +2039,44 @@ def serve_phase(n, seed, requests=48, slots=16):
     return line
 
 
+def factor_probe(when, n, seed, reps=3):
+    """The blocked f16x3_f32 factor, the main path's, timed ``reps`` times
+    (CUDA events and the host clock), beside the allocator's reserved
+    bytes and the card's SM clock, power draw and temperature read after
+    it. Run before the kernel phases and after them, it shows whether what
+    they leave behind (the CUDA graphs' memory pools, the allocator's
+    cache) moves the path's factor time."""
+    import repro_torch as rt
+    cfg = rt.PAPER_CONFIGS["f16x3_f32"]
+    a = paper_matrix(n, seed, cfg.high_dtype)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        rt.cholesky_padded(a, cfg)
+        stop.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ms.append(start.elapsed_time(stop))
+    reserved = torch.cuda.memory_reserved()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    del a
+    torch.cuda.empty_cache()
+    return {"phase": "factor_probe", "when": when, "ladder": "f16x3_f32",
+            "n": n, "factor_ms": ms, "factor_host_ms": host,
+            "reserved_gib": reserved / 2 ** 30,
+            "sm_clock_power_temp": smi}
+
+
 def breakdown(name, n, seed):
     """Device time by kernel inside one factor and one 16-column solve of
     each engine (torch.profiler), and the device's busy share of the wall
-    time."""
+    time; beside them the vendor's f32 Cholesky of the same matrix."""
     import repro_torch as rt
     cfg = rt.PAPER_CONFIGS[name]
     tcfg = dataclasses.replace(cfg, engine="tree")
@@ -1751,6 +2085,20 @@ def breakdown(name, n, seed):
     lp = rt.cholesky_padded(a, cfg)
     lt = rt.cholesky_padded(a, tcfg)
     line = {"phase": "breakdown", "ladder": name, "n": n}
+    # the paper's vendor baseline: cuSOLVER's f32 Cholesky of the same
+    # matrix (no host sync), a yardstick and no claim
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.linalg.cholesky_ex(a)
+    times = []
+    for _ in range(3):
+        start.record()
+        torch.linalg.cholesky_ex(a)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    line["library_ms"] = min(times)
+    line["library_ms_all"] = times
+    line["library"] = "torch.linalg.cholesky_ex(A), f32 (cuSOLVER)"
     for label, fn in (("factor", lambda: rt.cholesky_padded(a, cfg)),
                       ("solve_k16", lambda: rt.solve_factored(lp, b16, cfg)),
                       ("tree_factor", lambda: rt.cholesky_padded(a, tcfg)),
@@ -1763,11 +2111,14 @@ def breakdown(name, n, seed):
 
 
 def tree_qgemm_shapes(name, n, seed, top=2):
-    """The tree factor's qgemm calls grouped by shape and operand types,
-    ranked by device time (CUDA events around each call of one factor);
-    the top shapes timed against torch.addmm on the same shapes, its
-    operands in f32 (qgemm's arithmetic: narrow operands widened, f32
-    accumulation, scale and beta in the epilogue)."""
+    """The tree factor's qgemm calls grouped by shape, operand types and
+    route (ops.QGEMM_ROUTES around each call), ranked by device time (CUDA
+    events around each call of one factor); every call with 16-bit or
+    int8 operands must have taken the tensor cores (tc or tc_staged). The
+    top shapes timed (CUDA events, and graph_ms) against torch.addmm with
+    the operands widened to f32 and the library call of the same function
+    (_qgemm_library), unless the qgemm kernel line's tree_shapes times
+    them already (_TREE_TIMED)."""
     import repro_torch as rt
     from repro_torch.kernels import ops, qgemm
     cfg = dataclasses.replace(rt.PAPER_CONFIGS[name], engine="tree")
@@ -1779,13 +2130,16 @@ def tree_qgemm_shapes(name, n, seed, top=2):
                   out_dtype=torch.float32, out=None):
         start, stop = (torch.cuda.Event(enable_timing=True)
                        for _ in range(2))
+        before = dict(ops.QGEMM_ROUTES)
         start.record()
         res = inner(x, y, scale, c=c, beta=beta, trans_b=trans_b,
                     out_dtype=out_dtype, out=out)
         stop.record()
+        route = next(r for r, v in ops.QGEMM_ROUTES.items()
+                     if v > before[r])
         key = (tuple(x.shape), tuple(y.shape), trans_b,
                str(x.dtype).replace("torch.", ""),
-               str(y.dtype).replace("torch.", ""), c is not None)
+               str(y.dtype).replace("torch.", ""), c is not None, route)
         timed.setdefault(key, []).append((start, stop))
         return res
 
@@ -1796,30 +2150,56 @@ def tree_qgemm_shapes(name, n, seed, top=2):
         ops.qgemm = inner
     torch.cuda.synchronize()
     rows = sorted(({"a": list(k[0]), "b": list(k[1]), "trans_b": k[2],
-                    "dtypes": [k[3], k[4]], "c": k[5], "calls": len(v),
+                    "dtypes": [k[3], k[4]], "c": k[5], "route": k[6],
+                    "calls": len(v),
                     "device_ms": sum(s0.elapsed_time(s1) for s0, s1 in v)}
                    for k, v in timed.items()),
                   key=lambda r: -r["device_ms"])
+    narrow = [r for r in rows if r["dtypes"][0] in ("float16", "bfloat16",
+                                                    "int8")]
+    off_tc = [r for r in narrow if r["route"] not in ("tc", "tc_staged")]
+    if off_tc:
+        raise AssertionError(f"tree {name}: 16-bit/int8 qgemm calls off the "
+                             f"tensor cores: {off_tc[:3]}")
+    by_route = {}
+    for r in rows:
+        d = by_route.setdefault(r["route"], {"calls": 0, "device_ms": 0.0})
+        d["calls"] += r["calls"]
+        d["device_ms"] += r["device_ms"]
     total = sum(r["device_ms"] for r in rows)
     for r in rows[:top]:
-        (m, k), nn = r["a"], r["b"][0] if r["trans_b"] else r["b"][1]
+        (m, k), tb = r["a"], r["trans_b"]
+        nn = r["b"][0] if tb else r["b"][1]
+        tn = {"float16": "f16", "bfloat16": "bf16", "int8": "int8",
+              "float32": "f32"}.get(r["dtypes"][0])
+        r["timed_in_kernel_line"] = (m, nn, k, tn) in _TREE_TIMED and tb
+        if (r["timed_in_kernel_line"] or tn is None
+                or r["dtypes"][0] != r["dtypes"][1]):
+            continue
         g = torch.Generator(device="cuda").manual_seed(seed + 1)
-        x32 = torch.randn((m, k), generator=g, device="cuda")
-        y32 = torch.randn(tuple(r["b"]), generator=g, device="cuda")
+        x = _qgemm_operand(g, m, k, _QGEMM_TYPES[tn], "k")
+        # B as its (N, K) view, stored as the call's b was
+        y = _qgemm_operand(g, nn, k, _QGEMM_TYPES[tn], "k" if tb else "mn")
+        yb = y if tb else y.T
         c32 = torch.randn((m, nn), generator=g, device="cuda")
-        x = x32.to(getattr(torch, r["dtypes"][0]))
-        y = y32.to(getattr(torch, r["dtypes"][1]))
-        tb = r["trans_b"]
-        r["kernel_ms"] = cuda_ms(lambda: qgemm.qgemm(
-            x, y, -1.0, c=c32, beta=1.0, trans_b=tb), reps=10)
-        xw, yw = x.float(), (y.float().T if tb else y.float())
-        r["library_ms"] = cuda_ms(lambda: torch.addmm(c32, xw, yw, alpha=-1.0),
-                                  reps=10)
-        r["library"] = "torch.addmm(c, a, b, alpha=-1), operands in f32"
+        out = torch.empty_like(c32)
+
+        def run():
+            return qgemm.qgemm(x, yb, -1.0, c=c32, beta=1.0, trans_b=tb,
+                               out=out)
+        r["kernel_ms"] = cuda_ms(run, reps=10)
+        r["graph_ms"] = graph_ms(run, 10)
+        xw, yw = x.float(), y.float()
+        r["addmm_f32_operands_ms"] = cuda_ms(
+            lambda: torch.addmm(c32, xw, yw.T, alpha=-1.0), reps=10)
+        r.update(_qgemm_library(x, y, c32, tn))
+        del x, y, yb, xw, yw, c32, out
     del a
     torch.cuda.empty_cache()
     return {"phase": "tree_qgemm_shapes", "ladder": name, "n": n,
             "qgemm_device_ms": total, "calls": sum(r["calls"] for r in rows),
+            "by_route": by_route,
+            "narrow_calls_on_tensor_cores": sum(r["calls"] for r in narrow),
             "shapes": rows[:8]}
 
 
@@ -2065,6 +2445,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": kind,
           "build_s": _build.BUILD_SECONDS, "rates": rates})
 
+    emit(factor_probe("before_kernel_phases", N_MAIN, 850))
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for name, fn in (("potrf_leaf", lambda: kernel_potrf(rates, gen)),
@@ -2086,6 +2467,7 @@ def main() -> int:
         emit({"phase": "kernel", "name": name, **timing,
               "checks": checks, "phase_s": time.perf_counter() - t0})
     results["flash_attention_f32"] = results["flash_attention"]["f32"]
+    emit(factor_probe("after_kernel_phases", N_MAIN, 850))
 
     # each driven path runs with fresh counts and must launch its kernels;
     # the kernels line sums the paths' counts
@@ -2102,7 +2484,8 @@ def main() -> int:
                                      "path")
         for k in launches:
             launches[k] += got[k]
-        emit({"phase": f"{label}_launches", **got})
+        emit({"phase": f"{label}_launches", **got,
+              "qgemm_routes": dict(ops.QGEMM_ROUTES)})
 
     # warm-up of the whole path, then the main path
     path_run("pure_f32", 2048, 11)
@@ -2170,6 +2553,7 @@ def main() -> int:
     emit(path_run("f32x3_f64", 4096, 300))
     emit(breakdown("f16x3_f32", N_MAIN, 500))
     emit(tree_qgemm_shapes("f16x3_f32", N_MAIN, 510))
+    emit(tree_qgemm_shapes("int8_f32", N_MAIN, 511))
     agree = [cpu_agreement(name, 2048, 400 + i, engine)
              for engine in ("blocked", "tree")
              for i, name in enumerate(ladders + ("f32x3_f64",))]

@@ -18,6 +18,7 @@ the package is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -104,6 +105,23 @@ def check(err: int, what: str) -> None:
     """Raise if a launch was refused (bad configuration, no device...)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def on_device(device):
+    """A context that makes ``device`` the current one for a launch (a
+    no-op, and no cost, when it already is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device) -> int:
+    """The address of ``device``'s current stream, through torch's direct
+    accessor where it has one (no Stream object is built)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def scalar_arg(x, device, what):

@@ -64,10 +64,10 @@
 // Q 64 KiB + 2 x (K 32 + V 32) KiB = 192 KiB.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <type_traits>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -96,79 +96,6 @@ struct FtcCfg {
   static_assert(SMEM <= 232448, "shared memory of one CTA");
   static_assert(HD % 16 == 0 && HD % BOXD == 0, "head dim");
 };
-
-__device__ __forceinline__ uint32_t ftc_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// Wait until the phase of the given parity has completed. (No timeout
-// here: a trap path shared by the producer and the consumers makes ptxas
-// drop the setmaxnreg register split, and the consumers then spill.)
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// One box of a rank-4 (hd, seq, head, batch) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle code (1: 128 B, 2: 64 B, 3: 32 B).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint32_t swz) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swz << 62);
-}
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence/wait that brackets it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
 
 // D (64 x N, f32) = A (64 x 16) B (16 x N) + [scale_d] D. SS: A and B
 // K-major in shared memory. RS: A from four registers of 16-bit pairs, B
@@ -426,7 +353,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   using T = typename std::conditional<BF, __nv_bfloat16, __half>::type;
   constexpr int BKV = C::BKV, ROWB = C::ROWB, NS = BKV / 2, NO = HD / 2;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t sQ = (ftc_smem(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
   const uint32_t sBar = sKV + 2 * C::ST * C::KV_BYTES;
   const uint32_t bar_q = sBar;
@@ -585,34 +512,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       }
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Host side: tensor maps encoded per call through the driver's entry point
-// (no -lcuda needed), passed to the kernel as __grid_constant__ parameters.
-// ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // A [batch, seq, heads, hd] operand as the rank-4 map (hd, seq, heads, batch)

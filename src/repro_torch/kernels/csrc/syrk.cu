@@ -28,10 +28,19 @@
 // scales computed on the card; reading them there spares a device-to-host
 // sync per call, as the TPU kernel reads them from an SMEM block).
 //
+// The f32 leaf (A and C in f32: every leaf of the tree factor) runs pass 1
+// on the register-blocked core of simt_gemm.cuh instead (syrk_tiles_wide),
+// on 128 x 128 lower blocks fed by its cp.async ring: 3 blocks at n = 256,
+// so kernels/syrk.py:leaf_chunk aims at one wave of 132 CTAs, one an SM
+// (43 chunks of k = 192 at k = 8192), with 8 x 8 micro-tiles where the
+// 64 x 64 core's 4 x 4 ones read one element at a time. Pass 2 splits each
+// block's elements over 16 CTAs. The other types keep the 64 x 64 core of
+// common.cuh, as syrk_packed does.
+//
 // Each diagonal block keeps C's values above the diagonal; blocks above the
 // block diagonal are not in the grid. The epilogue is in C's type (f32, or
 // f64 when C or A is f64), as repro_torch/kernels/ref.py:syrk_ref computes.
-#include "common.cuh"
+#include "simt_gemm.cuh"
 
 // Accumulator: f32 for f32/f16/bf16 A, s32 for int8 A, f64 if C or A is f64.
 template <typename Ta, typename Tc> struct SyrkAcc { typedef typename AccOf<Ta>::type type; };
@@ -79,25 +88,106 @@ syrk_tiles(const Ta* __restrict__ A, ll lda, Tc* C, ll ldc, Tacc* P, int n, int 
       syrk_store(C, ldc, n, m0 + ty + 16 * r, n0 + tx + 16 * c, acc[r][c], scale, beta);
 }
 
-// grid (lower 64 x 64 blocks): P[s][t] summed over s = 0 .. S-1 in order
-template <typename Tacc, typename Tc>
+// grid (lower B x B blocks, parts): P[s][t] summed over s = 0 .. S-1 in
+// order; part y of a block takes its elements y, y + parts, ... in rows of
+// blockDim.x (the loads of a group of chunks are issued before its adds)
+template <typename Tacc, typename Tc, int B>
 __global__ void __launch_bounds__(G_THREADS)
 syrk_reduce(const Tacc* __restrict__ P, int S, Tc* C, ll ldc, int n, const float* sdev,
             double sh, const float* bdev, double bh) {
   int bi, bj;
   tri_decode(blockIdx.x, bi, bj);
-  const int ntri = gridDim.x;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const ll ntri = gridDim.x;
   const Tc scale = load_scalar<Tc>(sdev, sh), beta = load_scalar<Tc>(bdev, bh);
+  for (int e = threadIdx.x + blockIdx.y * blockDim.x; e < B * B; e += blockDim.x * gridDim.y) {
+    Tacc s = P[(ll)blockIdx.x * (B * B) + e];
+#pragma unroll 8
+    for (int q = 1; q < S; ++q) s += P[((ll)q * ntri + blockIdx.x) * (B * B) + e];
+    syrk_store(C, ldc, n, bi * B + e / B, bj * B + e % B, s, scale, beta);
+  }
+}
+
+// The f32 leaf's pass 1: grid (lower 128 x 128 blocks, k-chunks of kc) on
+// the simt_gemm core, through its cp.async ring when A's base and row
+// stride allow 16-byte copies (ASYNC), else one element at a time.
+constexpr int SW_B = 128, SW_ST = 3, SW_BK = 2 * SG_BK;
+template <bool SPLIT, bool ASYNC>
+__global__ void __launch_bounds__(SG_THREADS, 1)
+syrk_tiles_wide(const float* __restrict__ A, ll lda, float* C, ll ldc, float* P, int n, int K,
+                int kc, const float* sdev, double sh, const float* bdev, double bh) {
+  int bi, bj;
+  tri_decode(blockIdx.x, bi, bj);
+  const int m0 = bi * SW_B, n0 = bj * SW_B;
+  const int kbeg = blockIdx.y * kc, kend = min(K, kbeg + kc);
+  float acc[8][8];
+  // rows m0.. of A times (rows n0.. of A)^T over k in [kbeg, kend)
+  if constexpr (ASYNC) {
+    extern __shared__ __align__(16) uint8_t sw_smem[];
+    sg_block_async<float, float, SW_B, SW_B, 8, 8, SW_ST, SW_BK>(
+        acc, reinterpret_cast<float*>(sw_smem), A, lda, A, lda, n, n, m0, n0, kbeg, kend);
+  } else {
+    sg_block<float, float, SW_B, SW_B, 8, 8>(acc, A, lda, 1, LAY_ANY, A, lda, 1, LAY_ANY, n, n,
+                                             m0, n0, kbeg, kend);
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  if (SPLIT) {
+    float* p = P + ((ll)blockIdx.y * gridDim.x + blockIdx.x) * (SW_B * SW_B);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int e = (ty + 16 * r) * GB_N + tx + 16 * c;
-      Tacc s = P[(ll)blockIdx.x * (GB_M * GB_N) + e];
-      for (int q = 1; q < S; ++q) s += P[((ll)q * ntri + blockIdx.x) * (GB_M * GB_N) + e];
-      syrk_store(C, ldc, n, bi * GB_M + ty + 16 * r, bj * GB_N + tx + 16 * c, s, scale, beta);
+      for (int c = 0; c < 8; ++c) p[(ty + 16 * r) * SW_B + tx + 16 * c] = acc[r][c];
+    return;
+  }
+  const float scale = load_scalar<float>(sdev, sh), beta = load_scalar<float>(bdev, bh);
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      syrk_store(C, ldc, n, m0 + ty + 16 * r, n0 + tx + 16 * c, acc[r][c], scale, beta);
+}
+
+template <bool SPLIT, bool ASYNC>
+static int launch_wide(dim3 grid, const void* A, ll lda, void* C, ll ldc, void* P, int n, int K,
+                       int kc, const float* s, double sh, const float* b, double bh,
+                       cudaStream_t stream) {
+  constexpr int SMEM = ASYNC ? sg_async_smem<float, SW_B, SW_B, SW_ST, SW_BK>() : 0;
+  if constexpr (SMEM > 0) {
+    static bool configured = false;  // the attribute is set once per instance
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          syrk_tiles_wide<SPLIT, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      if (err != cudaSuccess) return (int)err;
+      configured = true;
     }
+  }
+  syrk_tiles_wide<SPLIT, ASYNC><<<grid, SG_THREADS, SMEM, stream>>>(
+      (const float*)A, lda, (float*)C, ldc, (float*)P, n, K, kc, s, sh, b, bh);
+  return 0;
+}
+
+static int launch_leaf_f32(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K, int kc,
+                           const void* sdev, double sh, const void* bdev, double bh,
+                           void* stream_) {
+  if (n <= 0 || K < 0 || kc <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const int nt = (n + SW_B - 1) / SW_B, ntri = nt * (nt + 1) / 2;
+  const int S = K > kc ? (K + kc - 1) / kc : 1;
+  const bool async = (uintptr_t)A % 16 == 0 && lda % 4 == 0;
+  const float* s = (const float*)sdev;
+  const float* b = (const float*)bdev;
+  if (S > 1 && !P) return (int)cudaErrorInvalidValue;
+  const dim3 grid(ntri, S);
+  const int kk = S > 1 ? kc : (K > 0 ? K : 1);
+  float* part = S > 1 ? (float*)P : nullptr;
+  int err = S > 1 ? (async ? launch_wide<true, true>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream)
+                           : launch_wide<true, false>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream))
+                  : (async ? launch_wide<false, true>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream)
+                           : launch_wide<false, false>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream));
+  if (err) return err;
+  if (S > 1)
+    syrk_reduce<float, float, SW_B><<<dim3(ntri, 16), G_THREADS, 0, stream>>>(
+        (const float*)P, S, (float*)C, ldc, n, s, sh, b, bh);
+  RETURN_LAUNCH_STATUS();
 }
 
 // kc: the k-chunk of each pass-1 block; kc >= K means one pass.
@@ -118,7 +208,7 @@ static int launch(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K,
     if (!P) return (int)cudaErrorInvalidValue;
     syrk_tiles<Ta, Tacc, Tc, true><<<dim3(ntri, S), G_THREADS, 0, stream>>>(
         (const Ta*)A, lda, (Tc*)C, ldc, (Tacc*)P, n, K, kc, s, sh, b, bh);
-    syrk_reduce<Tacc, Tc><<<ntri, G_THREADS, 0, stream>>>((const Tacc*)P, S, (Tc*)C, ldc, n,
+    syrk_reduce<Tacc, Tc, GB_M><<<ntri, G_THREADS, 0, stream>>>((const Tacc*)P, S, (Tc*)C, ldc, n,
                                                           s, sh, b, bh);
   }
   RETURN_LAUNCH_STATUS();
@@ -126,12 +216,16 @@ static int launch(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K,
 
 // syrk_leaf_*: k split in chunks of kc (pass 1 + pass 2);
 // syrk_packed_*: one pass over all of k.
-#define SYRK_ENTRIES(SFX, TA, TC)                                                         \
+#define SYRK_LEAF_ENTRY(SFX, LAUNCH)                                                      \
   extern "C" int syrk_leaf_##SFX(const void* A, ll lda, void* C, ll ldc, void* P, int n, \
                                  int K, int kc, const void* sdev, double sh,              \
                                  const void* bdev, double bh, void* stream) {             \
-    return launch<TA, TC>(A, lda, C, ldc, P, n, K, kc, sdev, sh, bdev, bh, stream);       \
-  }                                                                                       \
+    return LAUNCH(A, lda, C, ldc, P, n, K, kc, sdev, sh, bdev, bh, stream);               \
+  }
+#define SYRK_ENTRIES(SFX, TA, TC)                                                         \
+  SYRK_LEAF_ENTRY(SFX, (launch<TA, TC>))                                                  \
+  SYRK_PACKED_ENTRY(SFX, TA, TC)
+#define SYRK_PACKED_ENTRY(SFX, TA, TC)                                                    \
   extern "C" int syrk_packed_##SFX(const void* A, ll lda, void* C, ll ldc, int n, int K, \
                                    const void* sdev, double sh, const void* bdev,         \
                                    double bh, void* stream) {                             \
@@ -139,7 +233,8 @@ static int launch(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K,
                           bh, stream);                                                    \
   }
 
-SYRK_ENTRIES(f32, float, float)
+SYRK_LEAF_ENTRY(f32, launch_leaf_f32)
+SYRK_PACKED_ENTRY(f32, float, float)
 SYRK_ENTRIES(bf16, __nv_bfloat16, float)
 SYRK_ENTRIES(f16, __half, float)
 SYRK_ENTRIES(s8, int8_t, float)

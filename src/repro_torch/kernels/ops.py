@@ -21,7 +21,9 @@ inverted. Calls that run the plain version on the CPU add nothing.
 ``flash_attention`` counts both of its routes as one kernel;
 ``FLASH_ROUTES`` splits the same launches by ``flash.route`` of the
 operands' dtype: ``flash_tc`` (bf16 and f16, the tensor-core kernel) and
-``flash_simt`` (f32).
+``flash_simt`` (f32). ``QGEMM_ROUTES`` splits the ``qgemm`` launches by
+the route :func:`repro_torch.kernels.qgemm.plan` took (``tc``,
+``tc_staged``, ``simt_ksplit``, ``simt_tile``, ``simt_narrow``).
 
 A scale or beta may be a 0-d f32 tensor on the operands' device (the
 per-block quantization scales of the tree engine): the kernels read it
@@ -44,11 +46,12 @@ LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
             "panel_update": 0, "residual_fused": 0, "trsm_leaf": 0,
             "syrk_leaf": 0, "syrk_packed": 0, "flash_attention": 0}
 FLASH_ROUTES = {"flash_tc": 0, "flash_simt": 0}
+QGEMM_ROUTES = dict.fromkeys(_qgemm.ROUTES, 0)
 TILES = {"tri_inv_leaf": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, TILES):
+    for counts in (LAUNCHES, FLASH_ROUTES, QGEMM_ROUTES, TILES):
         for k in counts:
             counts[k] = 0
 
@@ -109,9 +112,12 @@ def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
     """``scale * (a @ b[.T]) + beta * c`` with wide accumulation. ``out``
     may be the very tensor ``c`` (an in-place update), never ``a``/``b``."""
     if _on_card(a, b, c, out, scale):
+        res, plan = _qgemm.launch(a, b, scale, c=c, beta=beta,
+                                  trans_b=trans_b, out_dtype=out_dtype,
+                                  out=out)
         LAUNCHES["qgemm"] += 1
-        return _qgemm.qgemm(a, b, scale, c=c, beta=beta, trans_b=trans_b,
-                            out_dtype=out_dtype, out=out)
+        QGEMM_ROUTES[plan.route] += 1
+        return res
     return _store(_ref.qgemm_ref(a, b, trans_b=trans_b, scale=scale, c=c,
                                  beta=beta, out_dtype=out_dtype), out)
 

@@ -9,7 +9,10 @@ lower triangle of ``C`` (f32 or f64) for ``A`` in f32, bf16, f16, int8
 it was; their plain version is
 :func:`repro_torch.kernels.ref.syrk_ref`. ``syrk_leaf`` splits k across
 thread blocks in chunks fixed by the shape (:func:`leaf_chunk`), so its
-sums are the same from run to run.
+sums are the same from run to run; its f32 first pass (every leaf of the
+tree factor) runs on the register-blocked core of ``csrc/simt_gemm.cuh``
+in 128 x 128 blocks, the other types on the 64 x 64 core of
+``csrc/common.cuh``.
 
 ``scale`` and ``beta`` may be Python numbers or 0-d f32 tensors on the
 card; a tensor is read by the kernel from device memory, so the per-block
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, qgemm
 
 #: (A dtype, C dtype) -> kernel suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
@@ -35,13 +38,11 @@ _P, _L, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_double)
 _LEAF_ARGS = (_P, _L, _P, _L, _P, _I, _I, _I, _P, _D, _P, _D, _P)
 _PACKED_ARGS = (_P, _L, _P, _L, _I, _I, _P, _D, _P, _D, _P)
-#: 64 x 64 output blocks (csrc/common.cuh: GB_M, GB_N)
-_BLOCK = 64
-#: about this many pass-1 thread blocks for a split syrk_leaf (two waves
-#: of the H100's 132 SMs)
-_TARGET_CTAS = 320
-#: the shortest k-chunk a split may make
-_MIN_CHUNK = 256
+#: pass-1 output block -> (about this many thread blocks, the shortest
+#: k-chunk a split may make): two waves of the H100's 132 SMs for the 64 x 64
+#: blocks of csrc/common.cuh, one wave (one CTA an SM) for the 128 x 128
+#: blocks of the f32 leaf (csrc/syrk.cu: SW_B)
+_SPLIT = {64: (320, 256), 128: (132, 64)}
 
 
 def _fn(kind, key):
@@ -52,14 +53,19 @@ def _fn(kind, key):
     return _FNS[(kind, key)]
 
 
-def leaf_chunk(n: int, k: int) -> tuple[int, int]:
+def leaf_block(a_dtype, c_dtype) -> int:
+    """The output block of syrk_leaf's first pass for these types."""
+    return 128 if (a_dtype, c_dtype) == (torch.float32, torch.float32) else 64
+
+
+def leaf_chunk(n: int, k: int, block: int = 64) -> tuple[int, int]:
     """``(kc, chunks)``: the k-chunk of syrk_leaf's first pass and their
-    number, from the shape alone: about ``_TARGET_CTAS`` thread blocks,
-    at most ``ceil(k / _MIN_CHUNK)`` chunks, each a multiple of 16."""
-    nt = _cdiv(n, _BLOCK)
-    s = max(1, min(_cdiv(k, _MIN_CHUNK), _TARGET_CTAS // (nt * (nt + 1) // 2)))
-    kc = max(16, _cdiv(_cdiv(k, s), 16) * 16)
-    return kc, _cdiv(k, kc) if k > kc else 1
+    number, from the shape and the block of :func:`leaf_block` alone:
+    qgemm's k-split over the triangle's blocks, aiming at about
+    ``_SPLIT[block][0]`` thread blocks, at most ``ceil(k / _SPLIT[block][1])``
+    chunks, each a multiple of 16."""
+    nt = _cdiv(n, block)
+    return qgemm.k_split(k, nt * (nt + 1) // 2, *_SPLIT[block])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -101,14 +107,15 @@ def syrk_leaf(c, a, scale=1.0, beta=1.0, *, out=None):
     key, out, (sp, sh), (bp, bh) = _prepare(c, a, out, scale, beta,
                                             "syrk_leaf")
     n, k = a.shape
-    kc, chunks = leaf_chunk(n, k)
+    block = leaf_block(a.dtype, c.dtype)
+    kc, chunks = leaf_chunk(n, k, block)
     part = None
     if chunks > 1:
         acc = {torch.int8: torch.int32, torch.float64: torch.float64}.get(
             a.dtype, torch.float64 if c.dtype == torch.float64
             else torch.float32)
-        nt = _cdiv(n, _BLOCK)
-        part = torch.empty((chunks, nt * (nt + 1) // 2, _BLOCK, _BLOCK),
+        nt = _cdiv(n, block)
+        part = torch.empty((chunks, nt * (nt + 1) // 2, block, block),
                            dtype=acc, device=c.device)
     with torch.cuda.device(c.device):
         err = _fn("leaf", key)(
