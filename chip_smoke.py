@@ -15,7 +15,11 @@ result line. Phases:
    and rounding variant, at the
    shapes of tests/test_kernels.py and at the main paths' shapes (leaf
    b = 256, the first diagonal tile of the n = 16384 matrix, panel
-   heights m = 256 .. n - 256, the residual at n = 16384 with 16 columns;
+   heights m = 256 .. n - 256 (``panel_update`` also at leaf 384, where
+   every pair takes the CUDA cores, and timed at panels 0, 31 and 61 of
+   the f16x3_f32 factor with its pairs by route, ``ops.PANEL_ROUTES``,
+   beside the bound of each pair's products at its name's rate), the
+   residual at n = 16384 with 16 columns and with one;
    the tree engine's leaves: ``trsm_leaf`` with M = 256 and 8192,
    ``syrk_leaf`` with k = 256 and 8192 in every level type,
    ``syrk_packed`` at n = k = 8192 and a ragged (500, 513);
@@ -61,7 +65,9 @@ result line. Phases:
    §IV-A matrix, for the ladders pure_f32, bf16_f32, f16x3_f32 and
    int8_f32; factor and solve times, peak memory, the residual
    ||b - A x|| / ||b|| in f64 and each kernel's launch count, which must
-   match the schedule (``diag_tri_inv`` is one ``tri_inv_leaf`` launch for
+   match the schedule, and ``panel_update``'s pairs by route, which must
+   match the plan's names (every f16, bf16 and int8 pair of an f32
+   container on the tensor cores, every other pair on the CUDA cores) (``diag_tri_inv`` is one ``tri_inv_leaf`` launch for
    its 64 tiles; ``ops.TILES`` must count them). Then bf16_f32 at
    n = 32768 and f32x3_f64 at n = 4096.
 4. ``tree_path``: the same for ``engine="tree"`` (the paper's nested
@@ -91,8 +97,8 @@ result line. Phases:
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
    (torch.profiler), and the card's busy share of the wall time; every
    profiled window must book a device event for each port launch that
-   ``ops.LAUNCHES`` counted in it; beside them the vendor's f32
-   Cholesky, ``torch.linalg.cholesky_ex``, of the same matrix (the
+   ``ops.LAUNCHES`` counted in it; beside them the vendor's f32 and
+   f64 Cholesky, ``torch.linalg.cholesky_ex``, of the same matrix (the
    paper's baseline; a yardstick, not a gate). ``tree_qgemm_shapes``
    (f16x3_f32 and int8_f32): the tree factor's ``qgemm`` calls by shape,
    operand types and route, ranked by device time, every 16-bit and int8
@@ -861,10 +867,41 @@ def _panel_check(what, cfg, m, gen, rounding=True, dtype=torch.float32):
             "tol": f"{unit:g} x max|ref|"}
 
 
+#: the rate of each pair name's products: the tensor cores' for f16, bf16
+#: and int8 (products exact on the grid values), the CUDA cores' for f32
+#: and f64 (card_rates keys)
+_PANEL_RATE = {"f16": "bf16", "bf16": "bf16", "int8": "int8", "f32": "f32",
+               "f64": "f64"}
+
+
+def _panel_bound(meta, m, b, esz, rates):
+    """The least time of one panel: the L21 solve (2 m b^2, f32 or f64)
+    and each lower pair's 2 b^3 products at its name's rate, against the
+    bytes of one read and one write of the lower trailing tiles, of A21 /
+    L21 and of L11^-1. Beside it the bound with every product at the
+    CUDA cores' f32 rate (the kernel's before it took the tensor cores)."""
+    nt = m // b
+    flops = {"f32": 2.0 * m * b * b}
+    for i in range(nt):
+        for j in range(i + 1):
+            kind = _PANEL_RATE[meta.pair_names[i][j]]
+            flops[kind] = flops.get(kind, 0.0) + 2.0 * b ** 3
+    ntri = nt * (nt + 1) // 2
+    nbytes = esz * (b * b + 2 * m * b + 2 * ntri * b * b)
+    t_ops = sum(f / rates[k] for k, f in flops.items()) * 1e3
+    t_bytes = nbytes / rates["bytes"] * 1e3
+    f32_ms, _ = bound_ms(sum(flops.values()), nbytes, "f32", rates)
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "gflop_by_rate": {k: f / 1e9 for k, f in flops.items()},
+            "bound_ms_all_f32_rate": f32_ms}
+
+
 def kernel_panel(rates, gen, n):
     from repro_torch.core.plan import build_plan
     from repro_torch.core.precision import PAPER_CONFIGS, PrecisionConfig
-    from repro_torch.kernels import panel, ref
+    from repro_torch.kernels import ops, panel, ref
     checks = []
     for levels, nt in [(("f32",), 2), (("f16", "f32"), 3),
                        (("f16", "f16", "f32"), 4), (("bf16", "f32"), 2),
@@ -891,29 +928,44 @@ def kernel_panel(rates, gen, n):
     checks.append(_panel_check("main f64 container (f32x3_f64)",
                                PAPER_CONFIGS["f32x3_f64"], 1024, gen, True,
                                torch.float64))
-    # time the paper's ladder at the first panel of the main path
+    # a leaf the tensor cores do not take: every pair on the CUDA cores,
+    # the int8 tiles as whole-tile items (absmax, then the rounding)
+    checks.append(_panel_check("leaf 384 int8_f32 (CUDA cores only)",
+                               PrecisionConfig(levels=("int8", "f32"),
+                                               leaf=384), 384 * 4, gen))
+    # time the paper's ladder at panels 0, 31 and 61 of the main path
     cfg = PAPER_CONFIGS["f16x3_f32"]
-    b, m = cfg.leaf, n - cfg.leaf
-    meta = build_plan(n, cfg).panel_meta(0)
-    kw = dict(store_names=meta.store_names, store_quants=meta.store_quants,
-              pair_names=meta.pair_names, pair_quants=meta.pair_quants)
-    linv, a21, c = _panel_inputs(gen, m, b, damp=1 / 32)
+    b = cfg.leaf
+    plan = build_plan(n, cfg)
     err = max(ch["max_abs_err"] for ch in checks
               if ch["case"] == "main f16-quant" and ch["m"] == heights[-1])
-    nt = m // b
-    ntri = nt * (nt + 1) // 2
-    flops = 2.0 * m * b * b + 2.0 * b ** 3 * ntri
-    nbytes = 4 * (b * b + 2 * m * b + 2 * ntri * b * b)
-    bound, by = bound_ms(flops, nbytes, "f32", rates)
+    panels = []
+    for p in (0, 31, 61):
+        m = n - (p + 1) * b
+        meta = plan.panel_meta(p)
+        kw = dict(store_names=meta.store_names,
+                  store_quants=meta.store_quants,
+                  pair_names=meta.pair_names, pair_quants=meta.pair_quants)
+        linv, a21, c = _panel_inputs(gen, m, b, damp=1 / 32)
+        before = dict(ops.PANEL_ROUTES)
+        ops.panel_update(linv, a21, c, **kw)
+        routes = {k: ops.PANEL_ROUTES[k] - before[k] for k in before}
+        panels.append({
+            "panel": p, "shape": [m, b], "routes": routes,
+            "ms": cuda_ms(lambda: panel.panel_update(linv, a21, c, **kw),
+                          reps=5, warmup=1),
+            "plain_ms": (cuda_ms(lambda: ref.panel_update_ref(
+                linv, a21, c, **kw), reps=3, warmup=1) if p == 0 else None),
+            **_panel_bound(meta, m, b, 4, rates)})
+        del linv, a21, c
+    torch.cuda.empty_cache()
+    head = panels[0]
     return checks, {
         "max_abs_err": err, "tol": f"{GRID['f16']:g} x max|ref|",
-        "ms": cuda_ms(lambda: panel.panel_update(linv, a21, c, **kw),
-                      reps=3, warmup=1),
-        "plain_ms": cuda_ms(lambda: ref.panel_update_ref(linv, a21, c, **kw),
-                            reps=3, warmup=1),
-        "library_ms": None,
-        "bound_ms": bound, "bound_by": by, "shape": [m, b],
-        "ladder": "f16x3_f32", "panel": 0}
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": None,
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "shape": head["shape"], "ladder": "f16x3_f32", "panel": 0,
+        "routes": head["routes"], "panels": panels}
 
 
 def kernel_residual(rates, gen, n):
@@ -971,34 +1023,38 @@ def kernel_residual(rates, gen, n):
         checks.append({"case": "column independence: k=32 vs k=16, k=2, "
                        "vector; aligned vs ragged lda", "dtype": tn,
                        "n": m, "bitwise": True})
-    # main path: n = 16384 with the 16-column slot block, f64 residuals
-    # (the serve and refine phases) and the f32 default
-    k = 16
+    # main path: n = 16384 with the 16-column slot block (and one column),
+    # f64 residuals (the serve and refine phases) and the f32 default
     timing = {}
     for tn in ("f64", "f32"):
         dt = dtypes[tn]
         a = torch.randn((n, n), generator=gen, device="cuda", dtype=dt) / 128
-        x = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
-        b = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
-        out = torch.empty_like(b)
-        rtol, atol = tols[tn](n)
-        err = check_close(f"residual main {tn}",
-                          residual.residual_fused(a, x, b),
-                          ref.residual_ref(a, x, b), rtol, atol)
-        esz = a.element_size()
-        bound, by = bound_ms(2.0 * n * n * k, esz * (n * n + 3 * n * k), tn,
-                             rates)
-        timing[tn] = {
-            "max_abs_err": err, "tol": f"rtol {rtol:g} atol {atol:g}",
-            "ms": cuda_ms(lambda: residual.residual_fused(a, x, b, out=out)),
-            "plain_ms": cuda_ms(lambda: ref.residual_ref(a, x, b), reps=5),
-            "library_ms": cuda_ms(lambda: torch.addmm(b, a, x, beta=1.0,
-                                                      alpha=-1.0, out=out)),
-            "bound_ms": bound, "bound_by": by, "shape": [n, n, k],
-            "dtype": tn}
+        for k in (16, 1):
+            x = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
+            b = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
+            out = torch.empty_like(b)
+            rtol, atol = tols[tn](n)
+            err = check_close(f"residual main {tn} k={k}",
+                              residual.residual_fused(a, x, b),
+                              ref.residual_ref(a, x, b), rtol, atol)
+            esz = a.element_size()
+            bound, by = bound_ms(2.0 * n * n * k, esz * (n * n + 3 * n * k),
+                                 tn, rates)
+            timing[f"{tn}_k{k}"] = {
+                "max_abs_err": err, "tol": f"rtol {rtol:g} atol {atol:g}",
+                "ms": cuda_ms(lambda: residual.residual_fused(a, x, b,
+                                                              out=out)),
+                "plain_ms": cuda_ms(lambda: ref.residual_ref(a, x, b),
+                                    reps=5),
+                "library_ms": cuda_ms(lambda: torch.addmm(
+                    b, a, x, beta=1.0, alpha=-1.0, out=out)),
+                "bound_ms": bound, "bound_by": by, "shape": [n, n, k],
+                "dtype": tn}
         del a
     torch.cuda.empty_cache()
-    return checks, {**timing["f64"], "f32": timing["f32"]}
+    return checks, {**timing["f64_k16"],
+                    **{key: timing[key] for key in ("f64_k1", "f32_k16",
+                                                    "f32_k1")}}
 
 
 def _gamma_atol(k, u, bound):
@@ -1460,6 +1516,24 @@ def residual(a, x, b, rows=4096):
     return math.sqrt(num) / float(bd.norm())
 
 
+def panel_routes(cfg, n):
+    """The lower tile pairs of one blocked factor's panel updates by the
+    route each must take, counted from the plan's names alone: the tensor
+    cores for every f16, bf16 and int8 pair of an f32 container at leaf
+    128 or 256, the CUDA cores for every other pair."""
+    from repro_torch.core.plan import build_plan
+    plan = build_plan(n, cfg)
+    T = plan.ntiles
+    tc_ok = cfg.high_dtype == torch.float32 and cfg.leaf in (128, 256)
+    got = {"tc": 0, "simt": 0}
+    for i in range(1, T):
+        for j in range(1, i + 1):
+            # pair (i, j) is updated by panels 0 .. j - 1 at its own name
+            on_tc = tc_ok and plan.name(i, j) in ("f16", "bf16", "int8")
+            got["tc" if on_tc else "simt"] += j
+    return got
+
+
 def path_run(name, n, seed):
     """cholesky_solve with 16 right-hand sides and with one vector, then
     the factor and the solves timed apart, on the paper matrix."""
@@ -1479,9 +1553,11 @@ def path_run(name, n, seed):
                 "qgemm": 2 * (2 * T - 1)}
     line = {"phase": "path", "ladder": name, "n": n, "leaf": cfg.leaf,
             "dtype": str(high).replace("torch.", "")}
+    want_routes = panel_routes(cfg, n)
     counts = {}
     for label, rhs in (("k16", b16), ("k1", b1)):
         before = dict(ops.LAUNCHES)
+        routes_before = dict(ops.PANEL_ROUTES)
         tiles_before = ops.TILES["tri_inv_leaf"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1494,6 +1570,11 @@ def path_run(name, n, seed):
         if got != schedule:
             raise AssertionError(f"{name} n={n} {label}: launches {got} "
                                  f"!= schedule {schedule}")
+        routes = {k: ops.PANEL_ROUTES[k] - routes_before[k]
+                  for k in routes_before}
+        if routes != want_routes:
+            raise AssertionError(f"{name} n={n} {label}: panel pairs by "
+                                 f"route {routes} != {want_routes}")
         tiles = ops.TILES["tri_inv_leaf"] - tiles_before
         if tiles != 2 * T - 1:
             raise AssertionError(f"{name} n={n} {label}: {tiles} tiles "
@@ -1507,6 +1588,7 @@ def path_run(name, n, seed):
         line[f"peak_mem_gib_{label}"] = (torch.cuda.max_memory_allocated()
                                          / 2 ** 30)
     line["launches_per_cholesky_solve"] = counts["k16"]
+    line["panel_routes_per_factor"] = want_routes
     line["schedule"] = schedule
     line["tri_inv_tiles_per_cholesky_solve"] = 2 * T - 1
     # factor and solves timed apart by CUDA events (after the warm-up
@@ -1853,9 +1935,8 @@ def refine_run(name, n, seed, *, method="ir", residual_dtype="f64",
 #: whose batched entry launches the same kernel over a grid of tiles)
 _SPANS = (("flash_tc", "flash_attention"),
           ("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
-          ("qgemm_", "qgemm"), ("round_rows", "panel_update"),
-          ("gemm_plain", "panel_update"), ("trail_gemm", "panel_update"),
-          ("commit", "panel_update"), ("residual_kernel", "residual_fused"),
+          ("qgemm_", "qgemm"), ("panel_", "panel_update"),
+          ("residual_kernel", "residual_fused"),
           ("trsm_kernel", "trsm_leaf"), ("syrk_tiles", "syrk_leaf"),
           ("syrk_reduce", "syrk_leaf"), ("flash_kernel", "flash_attention"),
           ("nvjet", "torch matmul (cuBLAS)"), ("gemm", "torch matmul (cuBLAS)"),
@@ -2076,7 +2157,8 @@ def factor_probe(when, n, seed, reps=3):
 def breakdown(name, n, seed):
     """Device time by kernel inside one factor and one 16-column solve of
     each engine (torch.profiler), and the device's busy share of the wall
-    time; beside them the vendor's f32 Cholesky of the same matrix."""
+    time; beside them the vendor's f32 and f64 Cholesky of the same
+    matrix."""
     import repro_torch as rt
     cfg = rt.PAPER_CONFIGS[name]
     tcfg = dataclasses.replace(cfg, engine="tree")
@@ -2099,6 +2181,20 @@ def breakdown(name, n, seed):
     line["library_ms"] = min(times)
     line["library_ms_all"] = times
     line["library"] = "torch.linalg.cholesky_ex(A), f32 (cuSOLVER)"
+    # and in f64, the diagonal precision of the f32x3_f64 ladder
+    a64 = a.double()
+    torch.linalg.cholesky_ex(a64)
+    times = []
+    for _ in range(3):
+        start.record()
+        torch.linalg.cholesky_ex(a64)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    del a64
+    line["library_f64_ms"] = min(times)
+    line["library_f64_ms_all"] = times
+    line["library_f64"] = "torch.linalg.cholesky_ex(A.double()) (cuSOLVER)"
     for label, fn in (("factor", lambda: rt.cholesky_padded(a, cfg)),
                       ("solve_k16", lambda: rt.solve_factored(lp, b16, cfg)),
                       ("tree_factor", lambda: rt.cholesky_padded(a, tcfg)),
@@ -2485,7 +2581,8 @@ def main() -> int:
         for k in launches:
             launches[k] += got[k]
         emit({"phase": f"{label}_launches", **got,
-              "qgemm_routes": dict(ops.QGEMM_ROUTES)})
+              "qgemm_routes": dict(ops.QGEMM_ROUTES),
+              "panel_routes": dict(ops.PANEL_ROUTES)})
 
     # warm-up of the whole path, then the main path
     path_run("pure_f32", 2048, 11)

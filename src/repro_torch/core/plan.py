@@ -167,7 +167,16 @@ class PrecisionPlan:
     def panel_meta(self, p: int) -> "PanelMeta":
         """Static metadata for the fused panel update at panel ``p``:
         storage names/quant flags for the trailing row tiles of column
-        ``p`` and compute names/quant flags for every trailing pair."""
+        ``p`` and compute names/quant flags for every trailing pair.
+        Built once per panel and kept on the plan (``build_plan`` caches
+        the plan): rebuilding the (T - p - 1)^2 pair names for every panel
+        of every factor was the largest host cost of a blocked factor."""
+        cache = self.__dict__.setdefault("_panel_meta", {})
+        if p not in cache:
+            cache[p] = self._build_panel_meta(p)
+        return cache[p]
+
+    def _build_panel_meta(self, p: int) -> "PanelMeta":
         cfg = self.cfg
         rows = range(p + 1, self.ntiles)
         store_names = tuple(self.store_name(i, p) for i in rows)

@@ -1,8 +1,8 @@
 // Shared device code of the port's kernels: the per-tile rounding of the
-// precision plan, a block-wide absmax, the triangular tile-index decode
-// used by panel.cu and syrk.cu, the tiled GEMM core used by qgemm.cu,
-// panel.cu and syrk.cu, and the 32 x 32 block storage and register-blocked
-// block products of the leaf kernels potrf.cu and tri_inv.cu.
+// precision plan, a block-wide max, the triangular tile-index decode and
+// the tiled GEMM core used by syrk.cu, and the 32 x 32 block storage and
+// register-blocked block products of the leaf kernels potrf.cu and
+// tri_inv.cu.
 //
 // All arithmetic is IEEE: the build passes no --use_fast_math, so `/` and
 // sqrt are correctly rounded and every rounding below matches the plain
@@ -106,15 +106,6 @@ template <typename T> __device__ T block_max(T v) {
   v = lane < (int)(blockDim.x >> 5) ? red[lane] : T(0);
   for (int o = 16; o; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// max |x| over a (b, b) tile with leading dimension ld, as f32. Threads
-// walk the columns of each row, so every row is read coalesced.
-template <typename T> __device__ float tile_absmax(const T* x, ll ld, int b) {
-  T m = T(0);
-  for (int r = 0; r < b; ++r)
-    for (int c = threadIdx.x; c < b; c += blockDim.x) m = nan_max(m, (T)fabs(x[r * ld + c]));
-  return (float)block_max(m);
 }
 
 template <typename T> __device__ __forceinline__ T qnan();

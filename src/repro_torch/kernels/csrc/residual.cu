@@ -9,13 +9,20 @@
 // What bounds it on the card: every sweep streams A once (n^2 elements) and
 // does 2 k flops per element, k <= 32 right-hand sides on the serving path,
 // so it is bound by the bytes of A (n = 16384: 1 GiB in f32, 0.32 ms at
-// 3.35 TB/s). The design streams each row of A once per column chunk with
-// 16-byte loads, one warp per two rows, while the chunk of x it multiplies
-// sits in shared memory for the whole block; the next chunk is loaded into
-// registers while the current one is multiplied. At k = 1 that reaches the
-// bytes bound; at k = 16 the shared-memory reads of x (one 16-byte load per
-// 8 FMAs in f32, per 4 in f64) and the FMAs keep it at about twice the
-// bound. The TPU kernel's padding of the columns to 128 lanes is gone: a
+// 3.35 TB/s; f64 2 GiB, 0.64 ms). A block of 8 warps streams a band of
+// rows: chunks of A's rows and the matching rows of x move from global to
+// shared memory by cp.async through a ring of RS = 4 stages (3 chunks in
+// flight while one is multiplied, one block barrier a chunk). What is
+// left to bound is shared memory: every warp reads the whole x chunk of
+// its columns, so each 16-byte read of x must feed many FMAs, RPW x VEC
+// of them for RPW rows a warp. At k = 16 in f64 a warp holds 8 rows and
+// half the columns (64 accumulators a thread; all 16 columns of 8 rows
+// would be 128), so the x reads and A's trips through shared memory come
+// to ~2.75 KiB a row of A, against the 4 KiB of 4 rows and 16 columns;
+// Shape below gives each case's numbers.
+// The summation order below depends on n alone: not on the ring, on RPW
+// or on the block's shape.
+// The TPU kernel's padding of the columns to 128 lanes is gone: a
 // column chunk is 1, 4 or 16 wide. `out` may be `b` itself (each element is
 // read before it is written, by one thread), never A or x.
 //
@@ -31,10 +38,29 @@
 // holds, never how a column is summed.
 #include "common.cuh"
 
-// 8 warps a block, RPW rows of A a warp: at a 16-column chunk the
-// accumulators take 32 (f32) or 64 (f64) registers, so two blocks fit an SM
-// with the next chunk's prefetch and without spills
-constexpr int R_WARPS = 8, R_THREADS = 32 * R_WARPS, RPW = 2;
+// 8 warps a block
+constexpr int R_WARPS = 8, R_THREADS = 32 * R_WARPS, RS = 4;
+
+// The block's shape by type and column chunk KC: its warps are
+// R_WARPS / CH row groups of RPW rows, times CH groups of KC / CH columns
+// (the CH warps of a row group read the same rows of A); x's rows in
+// shared memory are XLD = JC + XPAD elements apart. A 16-byte read of x
+// feeds RPW x VEC FMAs, so RPW sets the shared-memory bytes per FMA, and
+// RPW x KC / CH accumulators a thread set the registers:
+// - f64, KC = 16: RPW 8 and CH 2 (the x chunk's 8 KiB read by 8 warps
+//   would otherwise be 4 rows to an x read); XPAD 1, an odd row length,
+//   so the 16 columns of one row of x land in 16 bank pairs when they are
+//   stored (x is then read 8 bytes at a time);
+// - f32, KC = 16: RPW 4, CH 1, XPAD 4 (16-byte reads);
+// - KC = 1 and 4: RPW 8, CH 1, XPAD VEC.
+template <typename T, int KC> struct Shape {
+  static constexpr bool SPLIT = sizeof(T) == 8 && KC == 16;
+  static constexpr int VEC = 16 / sizeof(T), JC = 32 * VEC;
+  static constexpr int RPW = (KC == 16 && !SPLIT) ? 4 : 8;
+  static constexpr int CH = SPLIT ? 2 : 1, KCH = KC / CH;
+  static constexpr int XLD = JC + (SPLIT ? 1 : VEC);
+  static constexpr int ROWS = R_WARPS / CH * RPW;  // rows of A a block
+};
 
 template <typename T> struct Vec;
 template <> struct Vec<float> {
@@ -54,147 +80,197 @@ template <> __device__ __forceinline__ double fma_<double>(double a, double b, d
   return __fma_rn(a, b, c);
 }
 
-// VEC consecutive elements of row `row` of A from column j on (zeros past n).
-template <typename T, bool ALIGNED>
-__device__ __forceinline__ void load_row(T (&v)[Vec<T>::N], const T* __restrict__ A, ll lda,
-                                         int n, int row, int j) {
-  constexpr int VEC = Vec<T>::N;
-  const T* p = A + (ll)row * lda + j;
-  if (ALIGNED && j + VEC <= n) {
-    typename Vec<T>::type w = *reinterpret_cast<const typename Vec<T>::type*>(p);
-    const T* e = reinterpret_cast<const T*>(&w);
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) v[q] = e[q];
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) v[q] = (j + q < n) ? p[q] : T(0);
-  }
+// cp.async of BYTES (4, 8 or 16) from src to shared dst; the bytes past
+// `valid` (0 or BYTES) are zero-filled, and nothing is read when it is 0
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d), "l"(src), "n"(BYTES),
+                 "r"(n)
+                 : "memory");
 }
 
-// Rows row0 .. row0 + RPW - 1 of A, VEC columns from j on (zeros past n).
-template <typename T, bool ALIGNED>
-__device__ __forceinline__ void load_a(T (&a)[RPW][Vec<T>::N], const T* __restrict__ A,
-                                       ll lda, int n, int row0, int j) {
+// One ring stage: the block's ROWS rows of A over JC columns, and the x
+// chunk [j0, j0 + JC) x [c0, c0 + KC) transposed (row c of x is column
+// c0 + c).
+template <typename T, int KC>
+struct Stage {
+  using S = Shape<T, KC>;
+  T a[S::ROWS][S::JC];
+  T x[KC][S::XLD];
+};
+
+template <typename T, int KC>
+__host__ __device__ constexpr int ring_bytes() {
+  return RS * (((int)sizeof(Stage<T, KC>) + 15) / 16 * 16);
+}
+
+// Issue chunk j0 into stage st: the block's rows of A, VEC elements a
+// lane (thread t copies rows t / 32 + R_WARPS i, columns j0 + VEC (t % 32)
+// on), and the x chunk, element e = threadIdx.x + s R_THREADS being column
+// e % KC, row e / KC (neighbouring threads read neighbouring columns, the
+// unit-stride dimension of a slot block). Past n and past k: zeros.
+template <typename T, int KC, bool ALIGNED>
+__device__ __forceinline__ void issue(Stage<T, KC>& st, const T* __restrict__ A, ll lda,
+                                      const T* __restrict__ X, ll sx0, ll sx1, int n, int c0,
+                                      int kc, int rowb, int j0) {
+  using S = Shape<T, KC>;
+  constexpr int VEC = S::VEC, JC = S::JC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = j0 + VEC * lane;
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    if (row0 + r < n) {
-      load_row<T, ALIGNED>(a[r], A, lda, n, row0 + r, j);
+  for (int i = 0; i < S::ROWS / R_WARPS; ++i) {
+    const int rr = warp + R_WARPS * i, row = rowb + rr;
+    T* d = &st.a[rr][VEC * lane];
+    const T* p = A + (ll)min(row, n - 1) * lda + j;
+    if (ALIGNED && j + VEC <= n) {
+      cp_async_zfill<16>(d, p, row < n);
     } else {
 #pragma unroll
-      for (int q = 0; q < Vec<T>::N; ++q) a[r][q] = T(0);
+      for (int q = 0; q < VEC; ++q)
+        cp_async_zfill<sizeof(T)>(d + q, (row < n && j + q < n) ? p + q : A, row < n && j + q < n);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < (KC * JC + R_THREADS - 1) / R_THREADS; ++s) {
+    const int e = threadIdx.x + s * R_THREADS, c = e % KC, jj = e / KC;
+    if (e < KC * JC) {
+      const bool ok = c < kc && j0 + jj < n;
+      cp_async_zfill<sizeof(T)>(&st.x[c][jj], ok ? X + (ll)(j0 + jj) * sx0 + (ll)(c0 + c) * sx1 : X,
+                                ok);
     }
   }
 }
 
-// This thread's share of the x chunk [j0, j0 + JC) x [c0, c0 + kc): element
-// e = threadIdx.x + s * R_THREADS is column e % KC, row e / KC, so
-// neighbouring threads read neighbouring columns (the unit-stride dimension
-// of a slot block).
-template <typename T, int KC, int JC, int SPT>
-__device__ __forceinline__ void load_x(T (&xr)[SPT], const T* __restrict__ X, ll sx0, ll sx1,
-                                       int n, int c0, int kc, int j0) {
-#pragma unroll
-  for (int s = 0; s < SPT; ++s) {
-    const int e = threadIdx.x + s * R_THREADS, c = e % KC, j = j0 + e / KC;
-    xr[s] = (e < KC * JC && c < kc && j < n) ? X[(ll)j * sx0 + (ll)(c0 + c) * sx1] : T(0);
-  }
-}
-
-// Block (blockIdx.x, blockIdx.y) computes rows [RPW * R_WARPS * blockIdx.x, ...)
-// and columns [KC * blockIdx.y, ...) of the result. The next chunk's slice of
-// A and share of x are loaded into registers before the current chunk's
-// FMAs, so their latency overlaps the arithmetic; the summation order is the
-// same as without the prefetch.
-template <typename T, int KC, bool ALIGNED>
-__global__ void __launch_bounds__(R_THREADS, 2)
+// Block (blockIdx.x, blockIdx.y) computes rows [ROWS blockIdx.x, ...) and
+// columns [KC blockIdx.y, ...) of the result; warp w owns rows
+// (w % (R_WARPS / CH)) RPW .. + RPW - 1 of them and columns
+// (w / (R_WARPS / CH)) KCH .. + KCH - 1 of the chunk. Chunks of JC columns
+// of A and the matching rows of x go through a ring of RS stages in shared
+// memory by cp.async, RS - 1 chunks in flight, one block barrier a chunk;
+// the summation order is that of the file's header, whatever the ring and
+// the shape do.
+template <typename T, int KC, bool ALIGNED, int MINB>
+__global__ void __launch_bounds__(R_THREADS, MINB)
 residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0, ll sx1,
                 const T* B, ll sb0, ll sb1, T* O, ll so0, ll so1,
                 int n, int k) {
-  constexpr int VEC = Vec<T>::N, JC = 32 * VEC;
-  constexpr int SPT = (KC * JC + R_THREADS - 1) / R_THREADS;
-  // rows padded by one vector: a stage store of 16 neighbouring columns at
-  // one jj then spreads over 8 banks instead of 1; rows stay 16-byte aligned
-  __shared__ __align__(16) T xs[KC][JC + VEC];
+  using S = Shape<T, KC>;
+  constexpr int VEC = S::VEC, JC = S::JC, RPW = S::RPW, KCH = S::KCH;
+  extern __shared__ __align__(16) uint8_t ring_raw[];
+  constexpr int STAGE = ring_bytes<T, KC>() / RS;
+  auto stage = [&](int t) -> Stage<T, KC>& {
+    return *reinterpret_cast<Stage<T, KC>*>(ring_raw + (t % RS) * STAGE);
+  };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = warp % (R_WARPS / S::CH), cg0 = (warp / (R_WARPS / S::CH)) * KCH;
   const int c0 = blockIdx.y * KC;
   const int kc = min(KC, k - c0);
-  const int row0 = (blockIdx.x * R_WARPS + warp) * RPW;
+  const int rowb = blockIdx.x * S::ROWS;
+  const int nch = (n + JC - 1) / JC;
 
-  T acc[RPW][KC];
+  T acc[RPW][KCH];
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
-    for (int c = 0; c < KC; ++c) acc[r][c] = T(0);
+    for (int c = 0; c < KCH; ++c) acc[r][c] = T(0);
 
-  T a[RPW][VEC], xr[SPT];
-  load_a<T, ALIGNED>(a, A, lda, n, row0, VEC * lane);
-  load_x<T, KC, JC, SPT>(xr, X, sx0, sx1, n, c0, kc, 0);
-  for (int j0 = 0; j0 < n; j0 += JC) {
 #pragma unroll
-    for (int s = 0; s < SPT; ++s) {
-      const int e = threadIdx.x + s * R_THREADS;
-      if (e < KC * JC) xs[e % KC][e / KC] = xr[s];
-    }
-    __syncthreads();
-    const int jn = j0 + JC;
-    T an[RPW][VEC];
-    if (jn < n) {
-      load_a<T, ALIGNED>(an, A, lda, n, row0, jn + VEC * lane);
-      load_x<T, KC, JC, SPT>(xr, X, sx0, sx1, n, c0, kc, jn);
-    }
+  for (int t = 0; t < RS - 1; ++t) {
+    if (t < nch)
+      issue<T, KC, ALIGNED>(stage(t), A, lda, X, sx0, sx1, n, c0, kc, rowb, t * JC);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+  for (int t = 0; t < nch; ++t) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(RS - 2) : "memory");
+    __syncthreads();  // chunk t is everyone's; stage (t - 1) % RS is free
+    const int tn = t + RS - 1;
+    if (tn < nch)
+      issue<T, KC, ALIGNED>(stage(tn), A, lda, X, sx0, sx1, n, c0, kc, rowb, tn * JC);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    const Stage<T, KC>& st = stage(t);
+    T a[RPW][VEC];
 #pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      T xv[VEC];
+    for (int r = 0; r < RPW; ++r) {
       const typename Vec<T>::type w =
-          *reinterpret_cast<const typename Vec<T>::type*>(&xs[c][VEC * lane]);
+          *reinterpret_cast<const typename Vec<T>::type*>(&st.a[rg * RPW + r][VEC * lane]);
       const T* e = reinterpret_cast<const T*>(&w);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) xv[q] = e[q];
+      for (int q = 0; q < VEC; ++q) a[r][q] = e[q];
+    }
+#pragma unroll
+    for (int c = 0; c < KCH; ++c) {
+      T xv[VEC];
+      const T* xp = &st.x[cg0 + c][VEC * lane];
+      if constexpr (S::XLD % VEC == 0) {
+        const typename Vec<T>::type w = *reinterpret_cast<const typename Vec<T>::type*>(xp);
+        const T* e = reinterpret_cast<const T*>(&w);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) xv[q] = e[q];
+      } else {
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) xv[q] = xp[q];
+      }
 #pragma unroll
       for (int r = 0; r < RPW; ++r)
 #pragma unroll
         for (int q = 0; q < VEC; ++q) acc[r][c] = fma_(a[r][q], xv[q], acc[r][c]);
     }
-    __syncthreads();  // xs is overwritten by the next chunk
-    if (jn < n) {
-#pragma unroll
-      for (int r = 0; r < RPW; ++r)
-#pragma unroll
-        for (int q = 0; q < VEC; ++q) a[r][q] = an[r][q];
-    }
   }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 
   // the 32 lane sums of each element, in a fixed butterfly; every lane ends
-  // with the same total, and lane c writes column c of the chunk
+  // with the same total, and lane c writes column cg0 + c of the chunk
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
-    const int row = row0 + r;
+    const int row = rowb + rg * RPW + r;
 #pragma unroll
-    for (int c = 0; c < KC; ++c) {
+    for (int c = 0; c < KCH; ++c) {
       T v = acc[r][c];
 #pragma unroll
       for (int o = 16; o; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
-      if (row < n && lane == c && c < kc) {
-        const ll col = c0 + c;
+      if (row < n && lane == c && cg0 + c < kc) {
+        const ll col = c0 + cg0 + c;
         O[(ll)row * so0 + col * so1] = B[(ll)row * sb0 + col * sb1] - v;
       }
     }
   }
 }
 
+template <typename T, int KC, bool ALIGNED>
+static int launch_kc(const T* A, ll lda, const T* X, ll sx0, ll sx1, const T* B, ll sb0, ll sb1,
+                     T* O, ll so0, ll so1, int n, int k, cudaStream_t stream) {
+  // f64 at 16 columns holds 64 f64 accumulators a thread: one block an SM
+  constexpr int MINB = (sizeof(T) == 8 && KC == 16) ? 1 : 2;
+  constexpr int SMEM = ring_bytes<T, KC>();
+  static bool configured = false;  // the attribute is set once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        residual_kernel<T, KC, ALIGNED, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int rows = Shape<T, KC>::ROWS;
+  dim3 grid((n + rows - 1) / rows, (k + KC - 1) / KC);
+  residual_kernel<T, KC, ALIGNED, MINB><<<grid, R_THREADS, SMEM, stream>>>(
+      A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k);
+  RETURN_LAUNCH_STATUS();
+}
+
 template <typename T, int KC>
 static int launch_kc(const void* A, ll lda, const void* X, ll sx0, ll sx1, const void* B,
                      ll sb0, ll sb1, void* O, ll so0, ll so1, int n, int k, int aligned,
                      cudaStream_t stream) {
-  const int rows = R_WARPS * RPW;
-  dim3 grid((n + rows - 1) / rows, (k + KC - 1) / KC);
   if (aligned)
-    residual_kernel<T, KC, true><<<grid, R_THREADS, 0, stream>>>(
-        (const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1, (T*)O, so0, so1, n, k);
-  else
-    residual_kernel<T, KC, false><<<grid, R_THREADS, 0, stream>>>(
-        (const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1, (T*)O, so0, so1, n, k);
-  RETURN_LAUNCH_STATUS();
+    return launch_kc<T, KC, true>((const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1,
+                                  (T*)O, so0, so1, n, k, stream);
+  return launch_kc<T, KC, false>((const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1,
+                                 (T*)O, so0, so1, n, k, stream);
 }
 
 // The column chunk is the narrowest of 1, 4, 16 that holds k (16 beyond).

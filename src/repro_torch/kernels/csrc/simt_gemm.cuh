@@ -230,7 +230,7 @@ __device__ __forceinline__ void sg_block(Tacc (&acc)[TM][TN], const Tin* __restr
 // are written element by element (zeros past the edge) with plain stores.
 // ---------------------------------------------------------------------------
 template <typename Tin, int BM, int BN, int ST, int BK = SG_BK>
-constexpr int sg_async_smem() {
+__host__ __device__ constexpr int sg_async_smem() {
   return ST * (BM + BN) * (BK + 16 / (int)sizeof(Tin)) * (int)sizeof(Tin);
 }
 

@@ -24,6 +24,10 @@ operands' dtype: ``flash_tc`` (bf16 and f16, the tensor-core kernel) and
 ``flash_simt`` (f32). ``QGEMM_ROUTES`` splits the ``qgemm`` launches by
 the route :func:`repro_torch.kernels.qgemm.plan` took (``tc``,
 ``tc_staged``, ``simt_ksplit``, ``simt_tile``, ``simt_narrow``).
+``PANEL_ROUTES`` counts the lower tile pairs that ``panel_update``
+launches updated, by the route :func:`repro_torch.kernels.panel.route`
+gave each (``tc``: f16, bf16 and int8 pairs on the tensor cores;
+``simt``: the rest on the CUDA cores).
 
 A scale or beta may be a 0-d f32 tensor on the operands' device (the
 per-block quantization scales of the tree engine): the kernels read it
@@ -47,11 +51,13 @@ LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
             "syrk_leaf": 0, "syrk_packed": 0, "flash_attention": 0}
 FLASH_ROUTES = {"flash_tc": 0, "flash_simt": 0}
 QGEMM_ROUTES = dict.fromkeys(_qgemm.ROUTES, 0)
+PANEL_ROUTES = dict.fromkeys(_panel.ROUTES, 0)
 TILES = {"tri_inv_leaf": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, QGEMM_ROUTES, TILES):
+    for counts in (LAUNCHES, FLASH_ROUTES, QGEMM_ROUTES, PANEL_ROUTES,
+                   TILES):
         for k in counts:
             counts[k] = 0
 
@@ -186,8 +192,11 @@ def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,
               pair_names=pair_names, pair_quants=pair_quants,
               rounding=rounding)
     if _on_card(linv, a21, c):
+        res, routes = _panel.launch(linv, a21, c, **kw)
         LAUNCHES["panel_update"] += 1
-        return _panel.panel_update(linv, a21, c, **kw)
+        for k, v in routes.items():
+            PANEL_ROUTES[k] += v
+        return res
     l21, cu = _ref.panel_update_ref(linv, a21, c, **kw)
     a21.copy_(l21)
     c.copy_(cu)

@@ -706,6 +706,30 @@ def test_residual_kernel_columns_bitwise(card, dt):
     assert torch.equal(inplace, full)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [129, 300, 1000, 4097])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_residual_kernel_ring_shapes(card, n, dt):
+    """The shared-memory ring at ragged n (a partial last chunk of A and x,
+    a partial last band of rows) and at k = 1, 3, 16 and 32 (f64 at k = 16
+    splits a band's columns between two warps): within the tolerance of
+    test_residual_kernel, and each column bitwise equal to the same column
+    computed alone (k = 1)."""
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    g = torch.Generator(device=card).manual_seed(n)
+    a = torch.randn((n, n), generator=g, device=card, dtype=dtype)
+    tol = (dict(rtol=2e-4, atol=2e-3) if dt == "f32"
+           else dict(rtol=0, atol=1e-12 * n ** 0.5))
+    for k in (1, 3, 16, 32):
+        x = torch.randn((n, k), generator=g, device=card, dtype=dtype)
+        b = torch.randn((n, k), generator=g, device=card, dtype=dtype)
+        got = residual.residual_fused(a, x, b)
+        torch.testing.assert_close(got, tref.residual_ref(a, x, b), **tol)
+        for j in {0, k // 2, k - 1}:
+            one = residual.residual_fused(a, x[:, j:j + 1], b[:, j:j + 1])
+            assert torch.equal(one[:, 0], got[:, j]), (k, j)
+
+
 def _syrk_atol(c, a, scale, beta):
     """A bound on |kernel - plain| for two sums of k products in other
     orders: each is within k u sum|a_i a_j| of the exact sum (plus one
