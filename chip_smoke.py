@@ -20,9 +20,18 @@ result line. Phases:
    the f16x3_f32 factor with its pairs by route, ``ops.PANEL_ROUTES``,
    beside the bound of each pair's products at its name's rate), the
    residual at n = 16384 with 16 columns and with one;
-   the tree engine's leaves: ``trsm_leaf`` with M = 256 and 8192,
+   the tree engine's leaves: ``trsm_leaf`` (B's rows on the 16-byte grid
+   and off it, f32 and f64) at every M the tree factor gives it (256 ..
+   8192 at leaf 256), each timed with its plan (``ops.TRSM_ROUTES``) beside
+   the launch's floor, and 32 times their sum set beside the tree factor's
+   profiled ``trsm_leaf`` time in the ``breakdown`` line;
    ``syrk_leaf`` with k = 256 and 8192 in every level type,
-   ``syrk_packed`` at n = k = 8192 and a ragged (500, 513);
+   ``syrk_packed`` in every type pair (f32, bf16, f16, int8, f32 with an
+   f64 C, f64) at n = k = 8192 and at ragged shapes, each on the route its
+   plan gives (``ops.SYRK_PACKED_ROUTES``: the tensor cores for bf16, f16
+   and int8, staged where A's rows are off the 16-byte grid; the CUDA cores
+   for the rest), int8 bitwise against its exact sums' epilogue and the f32
+   sums bitwise ``qgemm``'s;
    ``flash_attention`` at tests/test_flash.py's shapes in f32, bf16 and
    f16, every dense head dim 16 .. 256, S != T and a full call, a strided
    16-bit view and two refused ones, and at every
@@ -186,6 +195,16 @@ def flash_launches(dtype) -> int:
     """flash_attention launches so far on the route of dtype."""
     from repro_torch.kernels import flash, ops
     return ops.FLASH_ROUTES[flash.route(dtype)]
+
+
+def route_counts() -> dict:
+    """The launches of each routed kernel by route since the last
+    ``ops.reset_launches()``."""
+    from repro_torch.kernels import ops
+    return {"qgemm": dict(ops.QGEMM_ROUTES), "panel": dict(ops.PANEL_ROUTES),
+            "syrk_packed": dict(ops.SYRK_PACKED_ROUTES),
+            "trsm_leaf": dict(ops.TRSM_ROUTES),
+            "flash_attention": dict(ops.FLASH_ROUTES)}
 
 
 def launch_counts() -> dict:
@@ -1070,13 +1089,16 @@ def _unit(*dtypes):
 
 def kernel_trsm(rates, gen, n):
     """trsm_leaf (B @ L^-T through L^-1) against its plain product and, via
-    ops.trsm (tri_inv_leaf + trsm_leaf), against the triangular solve."""
+    ops.trsm (tri_inv_leaf + trsm_leaf), against the triangular solve, with
+    B's rows on the 16-byte grid and off it; then at every M the tree
+    factor gives it (leaf 256), each timed beside its bound, the solve and
+    its plan."""
     from repro_torch.kernels import ops, potrf, ref, trsm
     checks = []
 
     def one(what, b, l, dtype):
         linv = potrf.tri_inv_leaf(l)
-        got = trsm.trsm_leaf(b, linv)
+        got, p = trsm.launch(b, linv)
         want = ref.qgemm_ref(b, linv, trans_b=True, out_dtype=dtype)
         atol = _gamma_atol(l.shape[0], _unit(dtype),
                            float((b.abs() @ linv.abs().T).max()))
@@ -1084,12 +1106,17 @@ def kernel_trsm(rates, gen, n):
         dirty = linv + torch.triu(torch.full_like(linv, 1e3), 1)
         if not torch.equal(trsm.trsm_leaf(b, dirty), got):
             raise AssertionError(f"{what}: read above the diagonal")
+        if not torch.equal(trsm.trsm_leaf(b, linv), got):
+            raise AssertionError(f"{what}: not the same bits again")
         # inverse-then-product vs substitution: the reference suite's
         # tolerance in f32, 1e-12 in f64
         stol = 2e-4 if dtype == torch.float32 else 1e-12
+        before = ops.TRSM_ROUTES[p.route]
         err2 = check_close(f"{what} solve", ops.trsm(b, l),
                            ref.trsm_ref(b, l), stol, stol)
-        return err, err2, atol
+        if ops.TRSM_ROUTES[p.route] != before + 1:
+            raise AssertionError(f"{what}: not on route {p.route}")
+        return err, err2, atol, p
 
     def tri(m, dtype):
         r = torch.randn((m, m), generator=gen, device="cuda", dtype=dtype)
@@ -1099,38 +1126,60 @@ def kernel_trsm(rates, gen, n):
         for tn, dt in (("f32", torch.float32), ("f64", torch.float64)):
             wide = torch.randn((m, nn + 32), generator=gen, device="cuda",
                                dtype=dt)
-            err, err2, atol = one(f"trsm {tn} {m}x{nn}",
-                                  wide[:, 16:16 + nn], tri(nn, dt), dt)
-            checks.append({"shape": [m, nn], "dtype": tn, "max_abs_err": err,
-                           "tol": f"atol {atol:g} (2(n+2) u max |B||Linv|^T)",
-                           "solve_err": err2, "upper_never_read": True})
+            l = tri(nn, dt)
+            for col0 in (16, 1):          # rows on the 16-byte grid, off it
+                err, err2, atol, p = one(f"trsm {tn} {m}x{nn} @{col0}",
+                                         wide[:, col0:col0 + nn], l, dt)
+                checks.append({"shape": [m, nn], "dtype": tn,
+                               "col_offset": col0, "route": p.route,
+                               "max_abs_err": err,
+                               "tol": f"atol {atol:g} (2(n+2) u max "
+                                      "|B||Linv|^T)",
+                               "solve_err": err2, "upper_never_read": True,
+                               "repeat_bitwise": True})
     # main path: the panel leaves of the n = 16384 tree factor, B (M, 256)
-    # with M = 256 .. 8192 against the factor of the first diagonal tile
+    # with M = 256 .. 8192 against the factor of the first diagonal tile;
+    # 32 calls at each M a factor
     b = 256
     l = potrf.potrf_leaf(main_tile(b, n, 3))
-    for m in (256, n // 2):
-        x = torch.randn((m, b), generator=gen, device="cuda") / 64
-        err, err2, atol = one(f"trsm main M={m}", x, l, torch.float32)
-        checks.append({"shape": [m, b], "dtype": "f32", "case": "main path",
-                       "max_abs_err": err, "solve_err": err2,
-                       "tol": f"atol {atol:g}"})
     linv = potrf.tri_inv_leaf(l)
-    out = torch.empty_like(x)
-    m = n // 2
-    flops = m * b * (b + 1.0)            # the lower triangle's MACs, x 2
-    nbytes = 4 * (2 * m * b + b * (b + 1) / 2)
-    bound, by = bound_ms(flops, nbytes, "f32", rates)
-    xt = x.T.contiguous()
+    by_m = []
+    m = 256
+    while m <= n // 2:
+        x = torch.randn((m, b), generator=gen, device="cuda") / 64
+        err, err2, atol, p = one(f"trsm main M={m}", x, l, torch.float32)
+        out = torch.empty_like(x)
+        flops = m * b * (b + 1.0)        # the lower triangle's MACs, x 2
+        nbytes = 4 * (2 * m * b + b * (b + 1) / 2)
+        bound, by = bound_ms(flops, nbytes, "f32", rates)
+        xt = x.T.contiguous()
+        by_m.append({
+            "M": m, "max_abs_err": err, "solve_err": err2,
+            "tol": f"atol {atol:g} (2(n+2) u max|B||Linv|^T)",
+            "ms": cuda_ms(lambda: trsm.trsm_leaf(x, linv, out=out)),
+            "graph_ms": graph_ms(lambda: trsm.trsm_leaf(x, linv, out=out)),
+            "plain_ms": cuda_ms(lambda: ref.qgemm_ref(x, linv, trans_b=True),
+                                reps=5),
+            "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+                l, xt, upper=False)),
+            "bound_ms": bound, "bound_by": by, "route": p.route,
+            "tile": list(p.tile), "kc": p.kc, "ctas": p.ctas,
+            "reason": p.reason})
+        m *= 2
+    # the launch's floor: one CTA in one pass, B (64, 32)
+    x1 = torch.randn((64, 32), generator=gen, device="cuda")
+    l1 = torch.eye(32, device="cuda")
+    floor = {"shape": [64, 32], "route": trsm.plan(64, 32, x1.dtype).route,
+             "ms": cuda_ms(lambda: trsm.trsm_leaf(x1, l1)),
+             "graph_ms": graph_ms(lambda: trsm.trsm_leaf(x1, l1))}
+    top = by_m[-1]
     return checks, {
-        "max_abs_err": err, "tol": f"atol {atol:g} (2(n+2) u max|B||Linv|^T)",
-        "ms": cuda_ms(lambda: trsm.trsm_leaf(x, linv, out=out)),
-        "plain_ms": cuda_ms(lambda: ref.qgemm_ref(x, linv, trans_b=True),
-                            reps=5),
-        "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
-            l, xt, upper=False)),
+        **top, "shape": [top["M"], b],
         "library": "torch.linalg.solve_triangular(L, B^T) (the solve, "
                    "without the inverse)",
-        "bound_ms": bound, "bound_by": by, "shape": [m, b]}
+        "timing": _TIMING, "by_m": by_m, "launch_floor": floor,
+        "sum32_ms": sum(32 * r["ms"] for r in by_m),
+        "sum32_graph_ms": sum(32 * r["graph_ms"] for r in by_m)}
 
 
 _SYRK_TYPES = {"f32": (torch.float32, torch.float32),
@@ -1177,6 +1226,31 @@ def _syrk_check(what, fn, c, a, scale, beta):
 _SYRK_TOL = "atol 2(k+2) u (|scale| max diag(A A^T) + |beta| max|C|)"
 
 
+#: the rate of bound_ms for a SYRK's products, by A's type: 16-bit
+#: and int8 on the tensor cores, f32 on the CUDA cores, f64 sums on DMMA's
+#: peak (the f64 rate of the table)
+_SYRK_RATE = {"f32": "f32", "bf16": "bf16", "f16": "bf16", "int8": "int8",
+              "f32-c64": "f64", "f64": "f64"}
+
+
+def _syrk_library(c, a, tn):
+    """One PyTorch call computing the same products with their wide sums
+    (over both triangles, so twice the work), and its label."""
+    if tn == "int8":
+        return (lambda: torch._int_mm(a, a.T),
+                "torch._int_mm(a, a^T): s32 product, no epilogue, both "
+                "triangles")
+    if tn in ("bf16", "f16"):
+        return (lambda: torch.addmm(c, a, a.T, alpha=-1.0,
+                                    out_dtype=torch.float32),
+                "torch.addmm(c, a, a^T, alpha=-1, out_dtype=f32), both "
+                "triangles")
+    aw = a.to(c.dtype)
+    return (lambda: torch.addmm(c, aw, aw.T, alpha=-1.0),
+            f"torch.addmm(c, a, a^T, alpha=-1) in {str(c.dtype)[6:]}, both "
+            "triangles")
+
+
 def kernel_syrk_leaf(rates, gen):
     """syrk_leaf at tests/test_kernels.py's shapes and at the tree leaves'
     k = 256 and 8192, every level type, scale read from the card."""
@@ -1195,16 +1269,17 @@ def kernel_syrk_leaf(rates, gen):
                                n, k, syrk.leaf_block(a.dtype, c.dtype))[1],
                            "upper_kept_inplace_deterministic": True})
     # timing: the main path's widest leaf, f32 (every ladder's tree leaves)
-    # and bf16 (on the 64 x 64 core)
+    # and bf16 (on the 64 x 64 core), each bound at its type's rate: A read
+    # once, C's lower triangle read and written once
     n, k = 256, 8192
     timing = {}
     for tn in ("f32", "bf16"):
         c, a = _syrk_operands(gen, n, k, tn, amp=1 / 64)
         out = c.clone()
-        esz = a.element_size()
-        bound, by = bound_ms(n * (n + 1.0) * k, esz * n * k + 8 * n * n,
-                             "f32", rates)
-        af = a.float()
+        bound, by = bound_ms(n * (n + 1.0) * k,
+                             a.element_size() * n * k + 4 * n * (n + 1),
+                             _SYRK_RATE[tn], rates)
+        lib, label = _syrk_library(c, a, tn)
         err = next(ch["max_abs_err"] for ch in checks
                    if ch["shape"] == [n, k] and ch["dtype"] == tn)
         timing[tn] = {
@@ -1213,12 +1288,9 @@ def kernel_syrk_leaf(rates, gen):
             "graph_ms": graph_ms(
                 lambda: syrk.syrk_leaf(c, a, -1.0, 1.0, out=out)),
             "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0)),
-            "library_ms": cuda_ms(lambda: torch.addmm(c, af, af.T, beta=1.0,
-                                                      alpha=-1.0, out=out)),
-            "library_graph_ms": graph_ms(lambda: torch.addmm(
-                c, af, af.T, beta=1.0, alpha=-1.0, out=out)),
-            "library": "torch.addmm(c, a, a.T) in f32 (both triangles)",
-            "timing": _TIMING,
+            "library_ms": cuda_ms(lib), "library_graph_ms": graph_ms(lib),
+            "library": label, "timing": _TIMING,
+            "rate": _SYRK_RATE[tn],
             "bound_ms": bound, "bound_by": by, "shape": [n, k], "dtype": tn,
             "chunks": syrk.leaf_chunk(n, k, syrk.leaf_block(a.dtype,
                                                             c.dtype))}
@@ -1227,8 +1299,12 @@ def kernel_syrk_leaf(rates, gen):
 
 def kernel_syrk_packed(rates, gen, n):
     """syrk_packed at tests/test_kernels.py's shapes (ragged n and k
-    included) and at n = k = 8192; and the triangular decode."""
-    from repro_torch.kernels import ref, syrk
+    included) and at n = k = 8192 for every type pair, each on the route
+    its plan gives (ops.SYRK_PACKED_ROUTES); int8 bitwise against exact
+    sums with the epilogue's rounding; the f32 sums bitwise qgemm's on the
+    CUDA cores (one pass, fma in k order from +0); and the triangular
+    decode."""
+    from repro_torch.kernels import ops, qgemm, ref, syrk
     checks = []
     count = 200000
     i, j = (t.cpu().numpy().astype(np.int64) for t in syrk.tri_decode(count))
@@ -1237,34 +1313,93 @@ def kernel_syrk_packed(rates, gen, n):
         raise AssertionError("tri_decode is not exact below 200000")
     checks.append({"case": "tri_decode t < 200000 vs numpy integer "
                    "arithmetic", "exact": True})
-    for (m, k) in [(512, 256), (640, 300), (500, 513), (256, 128)]:
-        for tn in ("f32", "bf16", "int8", "f64"):
-            c, a = _syrk_operands(gen, m, k, tn)
-            err, atol = _syrk_check(f"syrk_packed {tn} {m}x{k}",
-                                    syrk.syrk_packed, c, a, 0.7, 0.9)
-            checks.append({"shape": [m, k], "dtype": tn, "max_abs_err": err,
-                           "tol": f"{_SYRK_TOL} = {atol:g}",
-                           "upper_kept_inplace_deterministic": True})
+
+    def packed(c, a, scale, beta, out=None):
+        res, p = syrk.packed_launch(c, a, scale, beta, out=out)
+        routes.append(p.route)
+        return res
+
+    def exact_int8(c, a, scale, beta):
+        """int8's exact sums (f64 holds them) in f32, then the epilogue
+        (s * scale) + (beta * c) on the lower triangle."""
+        s = (a.double() @ a.double().T).float()
+        lo = torch.ones_like(c, dtype=torch.bool).tril()
+        return torch.where(lo, s * scale + beta * c, c)
+
+    def one(what, tn, m, k, scale, beta, amp=1.0):
+        c, a = _syrk_operands(gen, m, k, tn, amp)
+        routes.clear()
+        before = dict(ops.SYRK_PACKED_ROUTES)
+        ops.syrk(c, a, scale, beta, packed=True)
+        err, atol = _syrk_check(what, packed, c, a, scale, beta)
+        major = qgemm.layout(m, k, *a.stride(), a.element_size(),
+                             a.data_ptr() % qgemm.ALIGN)[0]
+        route = syrk.packed_plan(m, k, a.dtype, c.dtype, major).route
+        want = ("simt" if a.dtype not in syrk.TC_DTYPES else
+                "tc" if major == "k" else "tc_staged")
+        if set(routes) != {route} or route != want or \
+                ops.SYRK_PACKED_ROUTES[route] != before[route] + 1:
+            raise AssertionError(f"{what}: routes {routes}, plan {route}, "
+                                 f"expected {want}")
+        line = {"shape": [m, k], "dtype": tn, "route": route,
+                "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}",
+                "upper_kept_inplace_deterministic": True}
+        if tn == "int8":
+            got = syrk.syrk_packed(c, a, scale, beta)
+            if not torch.equal(got, exact_int8(c, a, scale, beta)):
+                raise AssertionError(f"{what}: int8 not the exact sums' "
+                                     "epilogue")
+            line["exact_sums_bitwise"] = True
+        return line, c, a, err, atol
+
+    routes = []
+    # (300, 256): a tensor-core tile whose second B box and lower half
+    # lie wholly past n
+    for (m, k) in [(512, 256), (640, 300), (500, 513), (256, 128),
+                   (1000, 512), (300, 256)]:
+        for tn in _SYRK_TYPES:
+            scale = torch.tensor(0.7, device="cuda")
+            checks.append(one(f"syrk_packed {tn} {m}x{k}", tn, m, k, scale,
+                              0.9)[0])
+    # main: n = k = 8192, every type pair, timed
     m = k = n // 2
-    c, a = _syrk_operands(gen, m, k, "f32", amp=1 / 64)
-    err, atol = _syrk_check("syrk_packed main", syrk.syrk_packed, c, a,
-                            -1.0, 1.0)
-    checks.append({"shape": [m, k], "dtype": "f32", "case": "main",
-                   "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}"})
-    out = c.clone()
-    bound, by = bound_ms(m * (m + 1.0) * k, 4 * (m * k + 2 * m * m), "f32",
-                         rates)
-    return checks, {
-        "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}",
-        "ms": cuda_ms(lambda: syrk.syrk_packed(c, a, -1.0, 1.0, out=out),
-                      reps=3, warmup=1),
-        "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0), reps=3,
-                            warmup=1),
-        "library_ms": cuda_ms(lambda: torch.addmm(c, a, a.T, beta=1.0,
-                                                  alpha=-1.0, out=out),
-                              reps=3, warmup=1),
-        "library": "torch.addmm(c, a, a.T) (both triangles)",
-        "bound_ms": bound, "bound_by": by, "shape": [m, k]}
+    timing = {}
+    for tn in _SYRK_TYPES:
+        line, c, a, err, atol = one(f"syrk_packed main {tn}", tn, m, k, -1.0,
+                                    1.0, amp=1 / 64)
+        checks.append({**line, "case": "main"})
+        out = c.clone()
+        rate = _SYRK_RATE[tn]
+        bound, by = bound_ms(m * (m + 1.0) * k,
+                             a.element_size() * m * k
+                             + 2 * c.element_size() * m * (m + 1) / 2,
+                             rate, rates)
+        lib, label = _syrk_library(c, a, tn)
+        timing[tn] = {
+            "max_abs_err": err, "tol": f"{_SYRK_TOL} = {atol:g}",
+            "route": line["route"],
+            "ms": cuda_ms(lambda: syrk.syrk_packed(c, a, -1.0, 1.0, out=out),
+                          reps=3, warmup=1),
+            "plain_ms": cuda_ms(lambda: ref.syrk_ref(c, a, scale=-1.0),
+                                reps=3, warmup=1),
+            "library_ms": cuda_ms(lib, reps=3, warmup=1), "library": label,
+            "bound_ms": bound, "bound_by": by, "rate": rate,
+            "shape": [m, k], "dtype": tn}
+        if tn == "f32":
+            # the sums of the simt route are fma in k order from +0, as
+            # qgemm's one-pass SIMT tile sums them: the same bits
+            zero = torch.zeros_like(c)
+            lo = torch.ones_like(c, dtype=torch.bool).tril()
+            q, qp = qgemm.launch(a, a, trans_b=True)
+            same = torch.equal(syrk.syrk_packed(zero, a, 1.0, 0.0)[lo], q[lo])
+            if qp.chunks != 1 or not same:
+                raise AssertionError("syrk_packed f32 sums differ from "
+                                     f"qgemm's one-pass ({qp.route})")
+            timing[tn]["sums_bitwise_qgemm_simt"] = True
+            del q, zero, lo
+        del c, a, out
+        torch.cuda.empty_cache()
+    return checks, {**timing["f32"], "types": timing}
 
 
 def _flash_atol(q, k, v):
@@ -1937,15 +2072,16 @@ _SPANS = (("flash_tc", "flash_attention"),
           ("potrf_kernel", "potrf_leaf"), ("tri_inv_kernel", "tri_inv_leaf"),
           ("qgemm_", "qgemm"), ("panel_", "panel_update"),
           ("residual_kernel", "residual_fused"),
-          ("trsm_kernel", "trsm_leaf"), ("syrk_tiles", "syrk_leaf"),
-          ("syrk_reduce", "syrk_leaf"), ("flash_kernel", "flash_attention"),
+          ("trsm_kernel", "trsm_leaf"), ("trsm_reduce", "trsm_leaf"),
+          ("syrk_tiles", "syrk_leaf"), ("syrk_reduce", "syrk_leaf"),
+          ("syrk_tc_kernel", "syrk_packed"),
+          ("syrk_packed_simt", "syrk_packed"),
+          ("flash_kernel", "flash_attention"),
           ("nvjet", "torch matmul (cuBLAS)"), ("gemm", "torch matmul (cuBLAS)"),
           ("cutlass", "torch matmul (cuBLAS)"),
           ("xmma", "torch matmul (cuBLAS)"))
 
 
-#: launch counters whose kernels the profiler books under another one
-_BOOKED_AS = {"syrk_packed": "syrk_leaf"}
 #: empty kernels (torch.cuda._sleep, "spin_kernel") launched at the start
 #: of every profiled window. torch.profiler (2.11, on the H100) loses the
 #: first device events of a session, more the longer the process has run,
@@ -2010,11 +2146,8 @@ def _profile_window(fn):
         by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
         booked[key] = booked.get(key, 0) + ev.count
         events += ev.count
-    launched = {}
-    for k, v in ops.LAUNCHES.items():
-        if v > before[k]:
-            key = _BOOKED_AS.get(k, k)
-            launched[key] = launched.get(key, 0) + v - before[k]
+    launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()
+                if v > before[k]}
     unseen = {k: {"launches": v, "device_events": booked.get(k, 0)}
               for k, v in launched.items() if booked.get(k, 0) < v}
     busy = sum(by.values())
@@ -2580,9 +2713,8 @@ def main() -> int:
                                      "path")
         for k in launches:
             launches[k] += got[k]
-        emit({"phase": f"{label}_launches", **got,
-              "qgemm_routes": dict(ops.QGEMM_ROUTES),
-              "panel_routes": dict(ops.PANEL_ROUTES)})
+        emit({"phase": f"{label}_launches", **got})
+        emit({"phase": f"{label}_routes", **route_counts()})
 
     # warm-up of the whole path, then the main path
     path_run("pure_f32", 2048, 11)
@@ -2648,7 +2780,15 @@ def main() -> int:
         emit({"phase": "path", "ladder": "bf16_f32", "n": 32768,
               "skipped": f"{elapsed:.0f} s spent before it"})
     emit(path_run("f32x3_f64", 4096, 300))
-    emit(breakdown("f16x3_f32", N_MAIN, 500))
+    line = breakdown("f16x3_f32", N_MAIN, 500)
+    # the kernel phase's trsm_leaf times at the tree's M, 32 calls each,
+    # beside the tree factor's profiled trsm_leaf device time
+    line["trsm_leaf_32_calls_each_m"] = {
+        "sum_ms": results["trsm_leaf"]["sum32_ms"],
+        "sum_graph_ms": results["trsm_leaf"]["sum32_graph_ms"],
+        "tree_factor_device_ms": line["tree_factor"][
+            "device_ms_by_kernel"].get("trsm_leaf")}
+    emit(line)
     emit(tree_qgemm_shapes("f16x3_f32", N_MAIN, 510))
     emit(tree_qgemm_shapes("int8_f32", N_MAIN, 511))
     agree = [cpu_agreement(name, 2048, 400 + i, engine)

@@ -8,9 +8,10 @@ Modules:
   qgemm.py  — mixed-precision GEMM (csrc/qgemm.cu)
   panel.py  — fused panel update of the blocked engine (csrc/panel.cu)
   residual.py — fused refinement residual b - A x (csrc/residual.cu)
-  trsm.py   — the tree engine's leaf solve B L^-T via L^-1 (csrc/trsm.cu)
-  syrk.py   — syrk_leaf, syrk_packed: lower-triangle C + A A^T
-              (csrc/syrk.cu)
+  trsm.py   — the tree engine's leaf solve B L^-T via L^-1 and its grid
+              plan (csrc/trsm.cu)
+  syrk.py   — syrk_leaf, syrk_packed: lower-triangle C + A A^T, and
+              syrk_packed's route plan (csrc/syrk.cu, csrc/tc_gemm.cuh)
   flash.py  — flash_attention_bshd: causal GQA attention of the model
               zoo's prefill; bf16/f16 on the tensor cores
               (csrc/flash_tc.cuh, flash_tc_bf16.cu, flash_tc_f16.cu), f32

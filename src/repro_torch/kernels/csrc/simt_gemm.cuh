@@ -1,6 +1,7 @@
 // Register-blocked GEMM core on the CUDA cores (f32 and f64 stay IEEE: no
 // tensor cores, which would round f32 operands to TF32), used by qgemm.cu's
-// SIMT routes and by syrk.cu's f32 leaf.
+// SIMT routes, panel.cu's simt pairs, syrk.cu's f32 leaf and its packed
+// f32/f64 route, and trsm.cu.
 //
 // A CTA of 256 threads computes a BM x BN block of acc = A B over one
 // k-range [kbeg, kend), in k-steps of BK (16 or more):
@@ -18,6 +19,9 @@
 // - sg_block_async takes two K-major operands straight from global to
 //   shared memory by cp.async into a ring of ST stages (ST - 1 steps in
 //   flight), where one step in flight left the loads' latency exposed.
+// - TRI_B: B is lower-triangular, its element (n, k) read only for k <= n
+//   (zero above the diagonal, never loaded): a vector that crosses the
+//   diagonal is read element by element, the rest as usual.
 // - Thread (tx, ty) = (tid % (BN / TN), tid / (BN / TN)) owns rows
 //   m0 + ty + (BM / TM) r and columns n0 + tx + (BN / TN) c. Each 16-byte
 //   shared read takes VW = 16 / sizeof(Tin) k-values of one row; a warp's
@@ -71,7 +75,8 @@ struct SgTile {
   static_assert(REG >= PE, "registers of a tile load");
 
   // element (r, k) of the operand at P[r * s_r + k * s_k]; rows >= rows and
-  // k >= kend read as zero
+  // k >= kend (TRI: also k > r) read as zero
+  template <bool TRI = false>
   static __device__ __forceinline__ void load(Tin (&reg)[REG], const Tin* __restrict__ P,
                                               ll s_r, ll s_k, int lay, int r0, int rows,
                                               int k0, int kend) {
@@ -82,14 +87,15 @@ struct SgTile {
         const int v = tid + i * SG_THREADS;
         if (v >= NV) break;
         const int r = r0 + v / (BK / VW), k = k0 + (v % (BK / VW)) * VW;
-        if (r < rows && k + VW <= kend) {
+        const int klim = TRI ? min(kend, r + 1) : kend;
+        if (r < rows && k + VW <= klim) {
           const SgVec<Tin> x = *reinterpret_cast<const SgVec<Tin>*>(P + (ll)r * s_r + k);
 #pragma unroll
           for (int j = 0; j < VW; ++j) reg[i * VW + j] = x.e[j];
         } else {
 #pragma unroll
           for (int j = 0; j < VW; ++j)
-            reg[i * VW + j] = (r < rows && k + j < kend) ? P[(ll)r * s_r + k + j] : Tin(0);
+            reg[i * VW + j] = (r < rows && k + j < klim) ? P[(ll)r * s_r + k + j] : Tin(0);
         }
       }
     } else if (lay == LAY_MN) {
@@ -98,14 +104,16 @@ struct SgTile {
         const int v = tid + i * SG_THREADS;
         if (v >= NV) break;
         const int k = k0 + v % BK, r = r0 + (v / BK) * VW;
-        if (k < kend && r + VW <= rows) {
+        if (k < kend && r + VW <= rows && (!TRI || k <= r)) {
           const SgVec<Tin> x = *reinterpret_cast<const SgVec<Tin>*>(P + r + (ll)k * s_k);
 #pragma unroll
           for (int j = 0; j < VW; ++j) reg[i * VW + j] = x.e[j];
         } else {
 #pragma unroll
           for (int j = 0; j < VW; ++j)
-            reg[i * VW + j] = (k < kend && r + j < rows) ? P[r + j + (ll)k * s_k] : Tin(0);
+            reg[i * VW + j] = (k < kend && r + j < rows && (!TRI || k <= r + j))
+                                  ? P[r + j + (ll)k * s_k]
+                                  : Tin(0);
         }
       }
     } else {
@@ -114,7 +122,8 @@ struct SgTile {
         const int e = tid + i * SG_THREADS;
         if (e >= NE) break;
         const int k = k0 + e % BK, r = r0 + e / BK;
-        reg[i] = (r < rows && k < kend) ? P[(ll)r * s_r + (ll)k * s_k] : Tin(0);
+        reg[i] = (r < rows && k < kend && (!TRI || k <= r)) ? P[(ll)r * s_r + (ll)k * s_k]
+                                                             : Tin(0);
       }
     }
   }
@@ -178,8 +187,10 @@ __device__ __forceinline__ void sg_mma(Tacc (&acc)[TM][TN], const Tin* as, const
 
 // acc[r][c] = sum over k in [kbeg, kend) of A(m0 + ty + (BM/TM) r, k) *
 // B(n0 + tx + (BN/TN) c, k), where A(m, k) = A[m sam + k sak] and
-// B(n, k) = B[n sbn + k sbk] (B given as its N x K view).
-template <typename Tin, typename Tacc, int BM, int BN, int TM, int TN, int BK = SG_BK>
+// B(n, k) = B[n sbn + k sbk] (B given as its N x K view; TRI_B: zero for
+// k > n).
+template <typename Tin, typename Tacc, int BM, int BN, int TM, int TN, int BK = SG_BK,
+          bool TRI_B = false>
 __device__ __forceinline__ void sg_block(Tacc (&acc)[TM][TN], const Tin* __restrict__ A, ll sam,
                                          ll sak, int alay, const Tin* __restrict__ B, ll sbn,
                                          ll sbk, int blay, int M, int N, int m0, int n0,
@@ -199,7 +210,7 @@ __device__ __forceinline__ void sg_block(Tacc (&acc)[TM][TN], const Tin* __restr
   if (nt == 0) return;
   Tin ra[TA::REG], rb[TB::REG];
   TA::load(ra, A, sam, sak, alay, m0, M, kbeg, kend);
-  TB::load(rb, B, sbn, sbk, blay, n0, N, kbeg, kend);
+  TB::template load<TRI_B>(rb, B, sbn, sbk, blay, n0, N, kbeg, kend);
   TA::store(As[0], ra, alay);
   TB::store(Bs[0], rb, blay);
   __syncthreads();
@@ -208,7 +219,7 @@ __device__ __forceinline__ void sg_block(Tacc (&acc)[TM][TN], const Tin* __restr
     if (more) {
       const int k0 = kbeg + (t + 1) * BK;
       TA::load(ra, A, sam, sak, alay, m0, M, k0, kend);
-      TB::load(rb, B, sbn, sbk, blay, n0, N, k0, kend);
+      TB::template load<TRI_B>(rb, B, sbn, sbk, blay, n0, N, k0, kend);
     }
     const Tin* as = As[t & 1];
     const Tin* bs = Bs[t & 1];
@@ -249,7 +260,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows r0.. of a K-major operand (rows s_r apart), k in [k0, k0 + BK)
-template <typename Tin, int R, int BK>
+// (TRI: and k <= the row)
+template <typename Tin, int R, int BK, bool TRI = false>
 __device__ __forceinline__ void sg_issue(Tin* S, const Tin* __restrict__ P, ll s_r, int r0,
                                          int rows, int k0, int kend) {
   constexpr int VW = 16 / sizeof(Tin), LD = BK + VW, NV = R * BK / VW;
@@ -259,17 +271,19 @@ __device__ __forceinline__ void sg_issue(Tin* S, const Tin* __restrict__ P, ll s
     if (v >= NV) break;
     const int rr = v / (BK / VW), kk = (v % (BK / VW)) * VW;
     const int r = r0 + rr, k = k0 + kk;
+    const int klim = TRI ? min(kend, r + 1) : kend;
     Tin* d = S + rr * LD + kk;
-    if (r < rows && k + VW <= kend) {
+    if (r < rows && k + VW <= klim) {
       cp_async16(d, P + (ll)r * s_r + k);
     } else {
 #pragma unroll
-      for (int j = 0; j < VW; ++j) d[j] = (r < rows && k + j < kend) ? P[(ll)r * s_r + k + j] : Tin(0);
+      for (int j = 0; j < VW; ++j) d[j] = (r < rows && k + j < klim) ? P[(ll)r * s_r + k + j] : Tin(0);
     }
   }
 }
 
-template <typename Tin, typename Tacc, int BM, int BN, int TM, int TN, int ST, int BK = SG_BK>
+template <typename Tin, typename Tacc, int BM, int BN, int TM, int TN, int ST, int BK = SG_BK,
+          bool TRI_B = false>
 __device__ __forceinline__ void sg_block_async(Tacc (&acc)[TM][TN], Tin* smem,
                                                const Tin* __restrict__ A, ll sam,
                                                const Tin* __restrict__ B, ll sbn, int M, int N,
@@ -287,7 +301,7 @@ __device__ __forceinline__ void sg_block_async(Tacc (&acc)[TM][TN], Tin* smem,
     if (t < nt) {
       const int s = t % ST, k0 = kbeg + t * BK;
       sg_issue<Tin, BM, BK>(As + s * BM * LD, A, sam, m0, M, k0, kend);
-      sg_issue<Tin, BN, BK>(Bs + s * BN * LD, B, sbn, n0, N, k0, kend);
+      sg_issue<Tin, BN, BK, TRI_B>(Bs + s * BN * LD, B, sbn, n0, N, k0, kend);
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (flash_tc.cuh,
-// qgemm.cu): mbarriers, TMA loads, wgmma descriptors and group control,
+// panel.cu, and qgemm.cu and syrk.cu through tc_gemm.cuh): mbarriers, TMA
+// loads, wgmma descriptors and group control,
 // and the host-side tensor-map encoder, reached through the driver's entry
 // point so that no library needs -lcuda.
 #pragma once

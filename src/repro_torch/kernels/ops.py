@@ -27,7 +27,12 @@ the route :func:`repro_torch.kernels.qgemm.plan` took (``tc``,
 ``PANEL_ROUTES`` counts the lower tile pairs that ``panel_update``
 launches updated, by the route :func:`repro_torch.kernels.panel.route`
 gave each (``tc``: f16, bf16 and int8 pairs on the tensor cores;
-``simt``: the rest on the CUDA cores).
+``simt``: the rest on the CUDA cores). ``SYRK_PACKED_ROUTES`` splits the
+``syrk_packed`` launches by :func:`repro_torch.kernels.syrk.packed_plan`
+(``tc`` and ``tc_staged``: bf16, f16 and int8 A on the tensor cores;
+``simt``: f32 and f64), ``TRSM_ROUTES`` the ``trsm_leaf`` launches by
+:func:`repro_torch.kernels.trsm.plan` (``simt_wide``, ``simt_mid``,
+``simt_ksplit``).
 
 A scale or beta may be a 0-d f32 tensor on the operands' device (the
 per-block quantization scales of the tree engine): the kernels read it
@@ -52,12 +57,14 @@ LAUNCHES = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
 FLASH_ROUTES = {"flash_tc": 0, "flash_simt": 0}
 QGEMM_ROUTES = dict.fromkeys(_qgemm.ROUTES, 0)
 PANEL_ROUTES = dict.fromkeys(_panel.ROUTES, 0)
+SYRK_PACKED_ROUTES = dict.fromkeys(_syrk.PACKED_ROUTES, 0)
+TRSM_ROUTES = dict.fromkeys(_trsm.ROUTES, 0)
 TILES = {"tri_inv_leaf": 0}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLASH_ROUTES, QGEMM_ROUTES, PANEL_ROUTES,
-                   TILES):
+                   SYRK_PACKED_ROUTES, TRSM_ROUTES, TILES):
         for k in counts:
             counts[k] = 0
 
@@ -144,8 +151,10 @@ def trsm(b, l, *, side="right", trans=True, linv=None):
             return _ref.qgemm_ref(b, linv, trans_b=True, out_dtype=b.dtype)
         if linv is None:
             linv = tri_inv(l)
+        res, plan = _trsm.launch(b, linv)
         LAUNCHES["trsm_leaf"] += 1
-        return _trsm.trsm_leaf(b, linv)
+        TRSM_ROUTES[plan.route] += 1
+        return res
     if side != "left":
         raise NotImplementedError(f"trsm side={side} trans={trans}")
     if linv is None:
@@ -160,10 +169,13 @@ def syrk(c, a, scale=1.0, beta=1.0, *, packed=False, out=None):
     ``packed``, ``syrk_packed`` (one pass, any n). ``out`` may be ``c``
     itself for an in-place update."""
     if _on_card(c, a, out, scale, beta):
-        name = "syrk_packed" if packed else "syrk_leaf"
-        LAUNCHES[name] += 1
-        fn = _syrk.syrk_packed if packed else _syrk.syrk_leaf
-        return fn(c, a, scale, beta, out=out)
+        if not packed:
+            LAUNCHES["syrk_leaf"] += 1
+            return _syrk.syrk_leaf(c, a, scale, beta, out=out)
+        res, plan = _syrk.packed_launch(c, a, scale, beta, out=out)
+        LAUNCHES["syrk_packed"] += 1
+        SYRK_PACKED_ROUTES[plan.route] += 1
+        return res
     return _store(_ref.syrk_ref(c, a, alpha=1.0, beta=beta, scale=scale),
                   out)
 

@@ -14,6 +14,22 @@ tree factor) runs on the register-blocked core of ``csrc/simt_gemm.cuh``
 in 128 x 128 blocks, the other types on the 64 x 64 core of
 ``csrc/common.cuh``.
 
+``syrk_packed`` is bound by its n^2 k products: at the CUDA cores' rate
+for f32 (67 TFLOP/s) and f64, at the tensor cores' for 16-bit and int8 A,
+which the TPU kernel's MXU takes natively. :func:`packed_plan` picks its
+route from the shape, the types and A's layout, in plain Python (so the
+CPU tests reach it), and ``ops.SYRK_PACKED_ROUTES`` counts them:
+
+- ``tc``: bf16, f16 and int8 A on ``wgmma`` (``csrc/tc_gemm.cuh``, the
+  main loop of qgemm's tensor-core route) over a triangular grid of
+  128 x 256 tiles, the epilogue on the lower triangle only; int8 sums are
+  exact. ``tc_staged``: the same after copying A into a K-major buffer on
+  TMA's 16-byte grid, where A's base or row stride is off it.
+- ``simt``: f32, f64 and f32 A with an f64 C on ``csrc/simt_gemm.cuh``
+  over a triangular grid of lower blocks, one pass over all of k: 128 x 128
+  blocks of 8 x 8 micro-tiles where they fill a wave (f32), else 64 x 64;
+  each element is fma in k order from +0 whatever the block.
+
 ``scale`` and ``beta`` may be Python numbers or 0-d f32 tensors on the
 card; a tensor is read by the kernel from device memory, so the per-block
 quantization scales of the tree engine never cross to the host.
@@ -21,6 +37,8 @@ quantization scales of the tree engine never cross to the host.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -37,12 +55,52 @@ _FNS: dict = {}
 _P, _L, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_double)
 _LEAF_ARGS = (_P, _L, _P, _L, _P, _I, _I, _I, _P, _D, _P, _D, _P)
-_PACKED_ARGS = (_P, _L, _P, _L, _I, _I, _P, _D, _P, _D, _P)
+_PACKED_ARGS = (_P, _L, _P, _L, _I, _I, _I, _I, _P, _D, _P, _D, _P)
 #: pass-1 output block -> (about this many thread blocks, the shortest
 #: k-chunk a split may make): two waves of the H100's 132 SMs for the 64 x 64
 #: blocks of csrc/common.cuh, one wave (one CTA an SM) for the 128 x 128
 #: blocks of the f32 leaf (csrc/syrk.cu: SW_B)
 _SPLIT = {64: (320, 256), 128: (132, 64)}
+
+#: A's types on the tensor cores (syrk_packed's tc route)
+TC_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
+#: syrk_packed's output tiles: the tensor cores' (csrc/tc_gemm.cuh: QTC_BM,
+#: QTC_BN) and the SIMT blocks (csrc/syrk.cu: syrk_packed_simt)
+TC_TILE = (128, 256)
+SIMT_WIDE, SIMT_MID = 128, 64
+#: the H100's SMs: a grid of fewer 128 x 128 blocks takes 64 x 64 ones
+WAVE = 132
+PACKED_ROUTES = ("tc", "tc_staged", "simt")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedPlan:
+    route: str          # a key of ops.SYRK_PACKED_ROUTES
+    tile: tuple         # output tile (rows, columns)
+    ctas: int           # thread blocks of the launch
+    stage: bool = False     # tc: copy A into an aligned K-major buffer
+    async_: bool = False    # simt: A's rows through the cp.async ring
+
+
+@functools.lru_cache(maxsize=1024)
+def packed_plan(n: int, k: int, a_dtype, c_dtype, a_layout) -> PackedPlan:
+    """The route of ``syrk_packed`` for A (n, k) of ``a_dtype`` into C of
+    ``c_dtype``; ``a_layout`` is :func:`repro_torch.kernels.qgemm.layout`'s
+    verdict on A (``"k"``: K-major on the 16-byte grid)."""
+    del k  # one pass over all of k on every route
+    aligned = a_layout == "k"
+    if a_dtype in TC_DTYPES:
+        t = _cdiv(n, TC_TILE[1])
+        return PackedPlan("tc" if aligned else "tc_staged", TC_TILE,
+                          t * (t + 1), stage=not aligned)
+    block = SIMT_MID
+    if (a_dtype, c_dtype) == (torch.float32, torch.float32):
+        t = _cdiv(n, SIMT_WIDE)
+        if t * (t + 1) // 2 >= WAVE:
+            block = SIMT_WIDE
+    t = _cdiv(n, block)
+    return PackedPlan("simt", (block, block), t * (t + 1) // 2,
+                      async_=aligned)
 
 
 def _fn(kind, key):
@@ -96,10 +154,6 @@ def _prepare(c, a, out, scale, beta, what):
             _build.scalar_arg(beta, dev, what))
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def syrk_leaf(c, a, scale=1.0, beta=1.0, *, out=None):
     """Lower triangle of ``beta c + scale a a^T`` over ``c``'s upper
     triangle, into ``out`` (a copy of ``c`` unless given; ``out`` may be
@@ -117,26 +171,40 @@ def syrk_leaf(c, a, scale=1.0, beta=1.0, *, out=None):
         nt = _cdiv(n, block)
         part = torch.empty((chunks, nt * (nt + 1) // 2, block, block),
                            dtype=acc, device=c.device)
-    with torch.cuda.device(c.device):
+    with _build.on_device(c.device):
         err = _fn("leaf", key)(
             a.data_ptr(), a.stride(0), out.data_ptr(), out.stride(0),
             None if part is None else part.data_ptr(), n, k, kc, sp, sh,
-            bp, bh, _stream(c.device))
+            bp, bh, _build.raw_stream(c.device))
     _build.check(err, "syrk_leaf")
     return out
 
 
 def syrk_packed(c, a, scale=1.0, beta=1.0, *, out=None):
     """As :func:`syrk_leaf`, in one pass over all of k, for any (n, k)."""
+    return packed_launch(c, a, scale, beta, out=out)[0]
+
+
+def packed_launch(c, a, scale=1.0, beta=1.0, *, out=None):
+    """:func:`syrk_packed`, returning ``(out, plan)``."""
     key, out, (sp, sh), (bp, bh) = _prepare(c, a, out, scale, beta,
                                             "syrk_packed")
     n, k = a.shape
-    with torch.cuda.device(c.device):
+    major, lda = qgemm.layout(n, k, *a.stride(), a.element_size(),
+                              a.data_ptr() % qgemm.ALIGN)
+    p = packed_plan(n, k, a.dtype, c.dtype, major)
+    if p.stage:
+        a = qgemm._k_major_copy(a)
+        lda = a.stride(0)
+    elif major != "k":
+        lda = a.stride(0)
+    with _build.on_device(c.device):
         err = _fn("packed", key)(
-            a.data_ptr(), a.stride(0), out.data_ptr(), out.stride(0), n, k,
-            sp, sh, bp, bh, _stream(c.device))
+            a.data_ptr(), lda, out.data_ptr(), out.stride(0), n, k,
+            p.tile[0], int(p.async_), sp, sh, bp, bh,
+            _build.raw_stream(c.device))
     _build.check(err, "syrk_packed")
-    return out
+    return out, p
 
 
 def tri_decode(count: int, device="cuda"):
@@ -145,7 +213,8 @@ def tri_decode(count: int, device="cuda"):
     i = torch.empty(count, dtype=torch.int32, device=device)
     j = torch.empty(count, dtype=torch.int32, device=device)
     fn = _build.function("syrk", "tri_decode_check", (_P, _P, _I, _P))
-    with torch.cuda.device(i.device):
-        err = fn(i.data_ptr(), j.data_ptr(), count, _stream(i.device))
+    with _build.on_device(i.device):
+        err = fn(i.data_ptr(), j.data_ptr(), count,
+                 _build.raw_stream(i.device))
     _build.check(err, "tri_decode")
     return i, j

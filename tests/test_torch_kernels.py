@@ -415,6 +415,8 @@ def test_plain_products_are_column_independent():
 _TRSM_SHAPES = [(128, 128), (700, 256), (1024, 128), (65, 384)]
 _SYRK_SHAPES = [(128, 128), (256, 1000), (256, 64)]
 _PACKED_SHAPES = [(512, 256), (640, 300), (500, 513)]
+#: the tree factor's trsm_leaf rows at n = 16384 (leaf 256)
+_TREE_TRSM_M = (256, 512, 1024, 2048, 4096, 8192)
 
 
 def _tri(rng, n):
@@ -764,27 +766,35 @@ def _syrk_operands(card, n, k, dt, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", _TRSM_SHAPES)
+@pytest.mark.parametrize("m,n", _TRSM_SHAPES
+                         + [(m, 256) for m in _TREE_TRSM_M])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_trsm_leaf_kernel(card, m, n, dt):
     dtype = torch.float32 if dt == "f32" else torch.float64
     rng = np.random.default_rng(m + n)
     l = torch.from_numpy(_tri(rng, n)).to(card, dtype)
     big = torch.from_numpy(_rand(rng, (m, n + 32))).to(card, dtype)
-    b = big[:, 16:16 + n]                  # read through its leading dim
     # torch's triangular solve may return a column-major inverse
     linv = tref.tri_inv_ref(l).contiguous()
-    got = trsm.trsm_leaf(b, linv)
-    want = tref.qgemm_ref(b, linv, trans_b=True, out_dtype=dtype)
     u = 2.0 ** -24 if dt == "f32" else 2.0 ** -53
-    atol = 2 * (n + 1) * u * float((b.abs() @ linv.abs().T).max())
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
-    # only the lower triangle of linv is read
     dirty = linv + torch.triu(torch.full_like(linv, 1e3), 1)
-    assert torch.equal(trsm.trsm_leaf(b, dirty), got)
-    # the dispatch: tri_inv_leaf + trsm_leaf against the solve
+    route = trsm.plan(m, n, dtype).route
+    # rows read through the leading dim: on the 16-byte grid, and off it
+    # (one element a load)
+    for b in (big[:, 16:16 + n], big[:, 1:1 + n]):
+        got = trsm.trsm_leaf(b, linv)
+        want = tref.qgemm_ref(b, linv, trans_b=True, out_dtype=dtype)
+        atol = 2 * (n + 1) * u * float((b.abs() @ linv.abs().T).max())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        # only the lower triangle of linv is read; the same bits again
+        assert torch.equal(trsm.trsm_leaf(b, dirty), got)
+        assert torch.equal(trsm.trsm_leaf(b, linv), got)
+    # the dispatch: tri_inv_leaf + trsm_leaf against the solve, on the
+    # plan's route
+    before = dict(ops.TRSM_ROUTES)
     torch.testing.assert_close(ops.trsm(b, l), tref.trsm_ref(b, l),
                                rtol=2e-4, atol=2e-4)
+    assert ops.TRSM_ROUTES[route] == before[route] + 1
 
 
 @pytest.mark.gpu
@@ -805,15 +815,35 @@ def test_syrk_leaf_kernel(card, n, k, dt):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k", _PACKED_SHAPES)
-@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("n,k", _PACKED_SHAPES
+                         + [(1000, 512), (2048, 192), (300, 256)])
+@pytest.mark.parametrize("dt", list(_SYRK_TYPES))
 def test_syrk_packed_kernel(card, n, k, dt):
     c, a = _syrk_operands(card, n, k, dt, n * k)
-    got = syrk.syrk_packed(c, a, 0.7, 0.9)
-    want = tref.syrk_ref(c, a, scale=0.7, beta=0.9)
+    scale = torch.tensor(0.7, device=card)        # read on the card
+    before = dict(ops.SYRK_PACKED_ROUTES)
+    got = ops.syrk(c, a, scale, 0.9, packed=True)
+    major = qgemm.layout(n, k, *a.stride(), a.element_size(),
+                         a.data_ptr() % qgemm.ALIGN)[0]
+    route = syrk.packed_plan(n, k, a.dtype, c.dtype, major).route
+    assert ops.SYRK_PACKED_ROUTES[route] == before[route] + 1
+    if a.dtype in syrk.TC_DTYPES:
+        assert route == ("tc" if major == "k" else "tc_staged")
+    want = tref.syrk_ref(c, a, scale=scale, beta=0.9)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=_syrk_atol(c, a, 0.7, 0.9))
     assert torch.equal(torch.triu(got, 1), torch.triu(c, 1))
+    if dt == "int8":
+        # exact s32 sums: only the epilogue rounds, (s * scale) + (beta c)
+        s = (a.double() @ a.double().T).float()
+        exact = torch.where(torch.ones_like(c, dtype=torch.bool).tril(),
+                            s * scale + 0.9 * c, c)
+        assert torch.equal(got, exact)
+    # in place, and the same bits run to run
+    inplace = c.clone()
+    syrk.syrk_packed(inplace, a, scale, 0.9, out=inplace)
+    assert torch.equal(inplace, got)
+    assert torch.equal(syrk.syrk_packed(c, a, scale, 0.9), got)
 
 
 @pytest.mark.gpu
