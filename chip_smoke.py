@@ -102,6 +102,24 @@ result line. Phases:
    a windowed drain; requests/s of each with the factor excluded, sweeps,
    convergence, cache hits, the card's busy share, and the two modes
    compared request for request.
+   ``tune``: the committed tuning database of the card
+   (``src/repro_torch/tune/data/cuda.json``), loaded with warnings as
+   errors, must be valid, consulted as it says and the one
+   ``engine="auto"`` reads; each ladder's engine crossover is printed. A
+   smoke search (``autotune(smoke=True)``, bf16_f32, the real timer) must
+   give a valid payload. ``cholesky_solve`` with ``engine="auto"`` for
+   bf16_f32 and f16x3_f32 at n = 1024 and 16384 must run the engine the
+   database names (read from the launches) and give its explicit run's x
+   bitwise, at 16384 with that engine's digits floor. ``SolverEngine``
+   with an ``engine="auto"`` bf16_f32 ladder and the database refines 16
+   columns at n = 16384 to 1e-10 (f64 residuals), and ``BatchScheduler``
+   takes the database's ``max_batch``. bf16_f32's engine race is run again
+   at the two grid sizes around its committed crossover and printed beside
+   the committed pick (no gate). ``census``: the tree census of each
+   ladder at n = 16384 (GEMM and leaf FLOPs by type, the low-precision
+   share, its model time on ``PEAK_FLOPS``) and the blocked plan's dot
+   FLOPs, beside the ``path`` and ``tree_path`` lines' ``factor_ms``;
+   ``PEAK_FLOPS`` must equal the card's rates on an SXM card.
 7. ``breakdown``: device time by kernel inside one factor and one
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
    (torch.profiler), and the card's busy share of the wall time; every
@@ -2253,6 +2271,241 @@ def serve_phase(n, seed, requests=48, slots=16):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: the tuner (engine="auto", tuning_db=, the tuned max_batch)
+# ---------------------------------------------------------------------------
+#: the committed database of the card, measured by python -m repro_torch.tune
+CUDA_DB = ROOT / "src" / "repro_torch" / "tune" / "data" / "cuda.json"
+#: what the tuner's races launch: both engines, and the serving race's
+#: refinement residuals
+TUNE_KERNELS = REFINE_KERNELS
+
+
+def _engine_ran(got) -> str:
+    """The engine a factor ran on, from its launches: panel_update is the
+    blocked engine's, syrk_leaf and trsm_leaf the tree's."""
+    if got["panel_update"] > 0:
+        return "blocked"
+    if got["syrk_leaf"] > 0 and got["trsm_leaf"] > 0:
+        return "tree"
+    return "none"
+
+
+def tune_db_line():
+    """The committed database, loaded with warnings as errors (a card
+    that fell back to the untuned defaults would say nothing otherwise):
+    valid, consulted as it says, keyed "cuda", and the one engine="auto"
+    reads."""
+    import warnings
+
+    from repro_torch import tune
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        db = tune.load_db(str(CUDA_DB))
+        tune.clear_cache()
+        default = tune.get_default_db("cuda")
+    if db is None or default is None or default.payload != db.payload:
+        raise AssertionError(f"tune: {CUDA_DB} is not the database "
+                             "engine='auto' reads on the card")
+    errs = tune.validate_db(db.payload) + tune.verify_consultation(db)
+    if errs or db.backend != "cuda":
+        raise AssertionError(f"tune: committed database: {errs}, "
+                             f"backend {db.backend!r}")
+    ladders = sorted({e["ladder"] for e in db.entries})
+    return {"phase": "tune", "step": "committed_db",
+            "path": str(CUDA_DB.relative_to(ROOT)),
+            "entries": len(db.entries),
+            "crossover_n": {c["ladder"]: c["n"] for c in db.crossovers},
+            "engine_by_n": {lad: {str(e["n"]): e["choice"]["engine"]
+                                  for e in db.entries if e["ladder"] == lad}
+                            for lad in ladders},
+            "max_batch": {lad: db.decide(256, lad).max_batch
+                          for lad in ladders}}
+
+
+def tune_smoke_search():
+    """autotune(smoke=True) on the card with the real timer (both
+    engines at n = 256 and 512, leaves 128 and 256, and the serving race
+    at n = 256); its payload must be valid."""
+    from repro_torch import tune
+    t0 = time.perf_counter()
+    payload = tune.autotune(smoke=True, ladders=("bf16_f32",),
+                            device="cuda", log=lambda *args: None)
+    wall = time.perf_counter() - t0
+    errs = tune.validate_db(payload) + tune.verify_consultation(
+        tune.TuningDB(payload))
+    if errs or payload["backend"] != "cuda":
+        raise AssertionError(f"tune: smoke search payload: {errs}")
+    return {"phase": "tune", "step": "smoke_search", "wall_s": wall,
+            "payload": payload}
+
+
+def tune_auto_solves(seed):
+    """cholesky_solve with engine="auto" (16 right-hand sides) for
+    bf16_f32 and f16x3_f32 at n = 1024 and 16384: the engine that ran (by
+    its launches) must be the one the database names, x bitwise the
+    explicit engine's, and at 16384 the digits at that engine's floor."""
+    import repro_torch as rt
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+    runs = []
+    for i, name in enumerate(("bf16_f32", "f16x3_f32")):
+        base = rt.PAPER_CONFIGS[name]
+        auto = dataclasses.replace(base, engine="auto")
+        for j, n in enumerate((1024, N_MAIN)):
+            dec = tune.decide(n, tune.ladder_key(base), backend="cuda")
+            a = paper_matrix(n, seed + 10 * i + j)
+            g = torch.Generator(device="cuda").manual_seed(seed + 1)
+            b = torch.randn((n, 16), generator=g, device="cuda")
+            before = dict(ops.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = rt.cholesky_solve(a, b, auto)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = _engine_ran(_diff(before))
+            if ran != dec.engine:
+                raise AssertionError(f"tune: auto {name} n={n} ran {ran}, "
+                                     f"the database names {dec.engine}")
+            x_exp = rt.cholesky_solve(a, b, dataclasses.replace(
+                base, engine=dec.engine))
+            _bitwise(f"tune: auto {name} n={n} vs {dec.engine}", x, x_exp)
+            digits = -math.log10(max(residual(a, x, b), 1e-300))
+            floor = None
+            if n == N_MAIN:
+                floor = (DIGITS_FLOOR if dec.engine == "blocked"
+                         else TREE_DIGITS_FLOOR)[name]
+            if floor is not None and digits < floor:
+                raise AssertionError(f"tune: auto {name} n={n}: "
+                                     f"{digits:.2f} digits < {floor}")
+            runs.append({"ladder": name, "n": n, "engine": dec.engine,
+                         "source": dec.source, "ran": ran,
+                         "bitwise_explicit": True, "wall_ms": wall * 1e3,
+                         "digits": digits, "digits_floor": floor})
+            del a, x, x_exp
+            torch.cuda.empty_cache()
+    return {"phase": "tune", "step": "auto_solves", "k": 16, "runs": runs}
+
+
+def tune_serving(n, seed):
+    """SolverEngine with an engine="auto" bf16_f32 ladder and the
+    committed database: 16 columns refined at n = 16384 to 1e-10 with f64
+    residuals, on the engine the database names; BatchScheduler's width
+    is the database's."""
+    import repro_torch as rt
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+    from repro_torch.serve import BatchScheduler, SolveOptions, SolverEngine
+    db = tune.load_db(str(CUDA_DB))
+    cfg = dataclasses.replace(rt.PAPER_CONFIGS["bf16_f32"], engine="auto")
+    key = tune.ladder_key(cfg)
+    eng = SolverEngine(cfg, residual_dtype="f64", tuning_db=db)
+    a = paper_matrix(n, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    b = torch.randn((n, 16), generator=g, device="cuda")
+    want = db.decide(n, key).engine
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    (x,), (info,) = eng.solve_batched(
+        a, [b], SolveOptions(target_digits=10, cache_key="tune"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = _engine_ran(_diff(before))
+    digits = [-math.log10(max(residual(a, x[:, j], b[:, j]), 1e-300))
+              for j in range(16)]
+    if ran != want or not info.converged or min(digits) < 10:
+        raise AssertionError(f"tune: serving ran {ran} (database {want}), "
+                             f"converged {info.converged}, digits "
+                             f"{min(digits):.2f}")
+    mb = BatchScheduler(eng).max_batch
+    if mb != db.decide(256, key).max_batch:
+        raise AssertionError(f"tune: BatchScheduler.max_batch {mb} is not "
+                             "the database's")
+    del a, eng
+    torch.cuda.empty_cache()
+    return {"phase": "tune", "step": "serving", "ladder": "bf16_f32",
+            "engine": want, "ran": ran, "n": n, "k": 16,
+            "residual_dtype": "f64", "sweeps": info.sweeps,
+            "converged": info.converged, "digits_min": min(digits),
+            "wall_s": wall, "max_batch": mb}
+
+
+def tune_fresh_race():
+    """bf16_f32's engine race run again at the two grid sizes around its
+    committed crossover; printed beside the committed pick, no gate."""
+    from repro_torch import tune
+    from repro_torch.tune import search
+    db = tune.load_db(str(CUDA_DB))
+    key = "bf16_f32"
+    grid = sorted(e["n"] for e in db.entries
+                  if e["ladder"] == key and e["nshards"] == 1)
+    xn = db.crossover(key, 1)["n"]
+    hi = next((i for i, n in enumerate(grid) if xn is not None and n >= xn),
+              len(grid) - 1)
+    pair = grid[max(hi - 1, 0):max(hi - 1, 0) + 2]
+    timer = functools.partial(search.timeit, warmup=1, iters=3,
+                              device="cuda")
+    runs = []
+    for n in pair:
+        choice, meas, per_engine = search._tune_single(
+            n, tuple(key.split("_")), timer, lambda *args: None, "cuda")
+        committed = db.decide(n, key)
+        cm = next(e["measurements"] for e in db.entries
+                  if e["ladder"] == key and e["n"] == n)
+        runs.append({"n": n, "fresh_pick": choice["engine"],
+                     "committed_pick": committed.engine,
+                     "agree": choice["engine"] == committed.engine,
+                     "fresh_us": meas,
+                     "committed_us": {k: v for k, v in cm.items()
+                                      if k.startswith(("us_tree",
+                                                       "us_blocked"))}})
+    return {"phase": "tune", "step": "fresh_race", "ladder": key,
+            "committed_crossover_n": xn, "timer": "median of 3 after 1, "
+            "3 interleaved rounds", "runs": runs}
+
+
+def census_phase(lines, rates, kind):
+    """The tree census (GEMM and leaf FLOPs by type, its model time on the
+    card's peaks) and the blocked plan's dot FLOPs at n = 16384, leaf
+    256, beside the tree and blocked factor_ms of the path lines."""
+    import repro_torch as rt
+    from repro_torch.core import PEAK_FLOPS, build_plan, census_potrf
+    if "PCIe" not in kind:
+        for k, v in PEAK_FLOPS.items():
+            if v != rates[{"f16": "bf16"}.get(k, k)]:
+                raise AssertionError(f"PEAK_FLOPS[{k}] {v:g} is not the "
+                                     "card's rate")
+    factor_ms = {(ln["phase"], ln["ladder"]): ln["factor_ms"] for ln in lines
+                 if ln.get("phase") in ("path", "tree_path")
+                 and ln.get("n") == N_MAIN and "factor_ms" in ln}
+    runs = []
+    for name in ("pure_f32", "bf16_f32", "f16x3_f32", "int8_f32"):
+        cfg = rt.PAPER_CONFIGS[name]
+        c = census_potrf(N_MAIN, cfg)
+        model_ms = c.model_time_s() * 1e3
+        dot = build_plan(N_MAIN, cfg).expected_dot_flops()
+        dot_ms = sum(v / PEAK_FLOPS[k] for k, v in dot.items()) * 1e3
+        tree_ms = factor_ms[("tree_path", name)]
+        blocked_ms = factor_ms[("path", name)]
+        runs.append({
+            "ladder": name, "n": N_MAIN, "leaf": cfg.leaf,
+            "tree_gemm_flops": dict(c.gemm_flops),
+            "tree_leaf_flops": dict(c.leaf_flops),
+            "tree_gemm_count": c.gemm_count, "tree_leaf_count": c.leaf_count,
+            "gemm_fraction": c.gemm_fraction,
+            "lowp_fraction": c.lowp_fraction(),
+            "lowp_fraction_with_int8": c.lowp_fraction(("f16", "bf16",
+                                                        "int8")),
+            "tree_model_ms": model_ms, "tree_factor_ms": tree_ms,
+            "tree_model_share": model_ms / tree_ms,
+            "blocked_dot_flops": dot, "blocked_dot_model_ms": dot_ms,
+            "blocked_factor_ms": blocked_ms,
+            "blocked_model_share": dot_ms / blocked_ms})
+    return {"phase": "census", "peak_flops": PEAK_FLOPS,
+            "model": "sum over types of FLOPs / PEAK_FLOPS (no bytes)",
+            "runs": runs}
+
+
 def factor_probe(when, n, seed, reps=3):
     """The blocked f16x3_f32 factor, the main path's, timed ``reps`` times
     (CUDA events and the host clock), beside the allocator's reserved
@@ -2701,11 +2954,13 @@ def main() -> int:
     # each driven path runs with fresh counts and must launch its kernels;
     # the kernels line sums the paths' counts
     launches = {k: 0 for k in KERNELS}
+    lines = []                  # every line the driven paths emitted
 
     def drive(label, kernels, runs):
         ops.reset_launches()
         for run in runs:
-            emit(run())
+            lines.append(run())
+            emit(lines[-1])
         got = launch_counts()
         for k in kernels:
             if got[k] == 0:
@@ -2739,6 +2994,10 @@ def main() -> int:
                                 residual_dtype="f32"),
              lambda: refine_run("bf16_f32", N_MAIN, 612, engine="tree")])
     drive("serve", SERVE_KERNELS, [lambda: serve_phase(N_MAIN, 700)])
+    drive("tune", TUNE_KERNELS,
+          [tune_db_line, tune_smoke_search, lambda: tune_auto_solves(720),
+           lambda: tune_serving(N_MAIN, 740), tune_fresh_race])
+    emit(census_phase(lines, rates, kind))
 
     # model serving: gemma-2b at full width and depth, bf16
     cfg, params, gib = _model("gemma-2b", 900)

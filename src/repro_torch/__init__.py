@@ -5,7 +5,9 @@ A second package beside the JAX reference ``repro``, module for module
 torch, numpy and the standard library, never jax and never ``repro``.
 Ported so far: the factorization and the solve of both engines, the
 default blocked one and the paper's nested recursion (``engine="tree"``,
-with the packed tree storage ``TreeSPD``), iterative refinement
+with the packed tree storage ``TreeSPD``), the census of the recursion
+(``repro_torch.core.census``), the measured-search tuner and its
+database (``repro_torch.tune``, ``engine="auto"``), iterative refinement
 (``refine_solve``) and solve serving (``repro_torch.serve``), and the
 model zoo's dense family (``repro_torch.configs``, ``repro_torch.models``)
 served by ``prefill_step``, ``serve_step`` and ``generate``, with nine

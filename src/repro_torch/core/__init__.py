@@ -1,7 +1,8 @@
 """repro_torch.core — the mixed-precision factor and solve, in torch.
 
 Public API of this slice of the port (counterparts in ``repro.core``):
-  PrecisionConfig, PAPER_CONFIGS, DTYPES, NARROW, RMAX — precision ladders
+  PrecisionConfig, PAPER_CONFIGS, DTYPES, NARROW, RMAX, PEAK_FLOPS — ladders
+  Census, census_potrf, census_trsm, census_syrk     — recursion census
   PrecisionPlan, ShardedPlan, TileInfo, build_plan, shard — static plan
   quant_block, dequant, storage_round, quant_int8, dequant_int8
   blocked_potrf, diag_tri_inv, blocked_trsm_left      — blocked engine
@@ -13,10 +14,12 @@ Public API of this slice of the port (counterparts in ``repro.core``):
 """
 from repro_torch.core.blocked import (blocked_potrf, blocked_trsm_left,
                                       diag_tri_inv)
+from repro_torch.core.census import (Census, census_potrf, census_syrk,
+                                     census_trsm)
 from repro_torch.core.plan import (PrecisionPlan, ShardedPlan, TileInfo,
                                    build_plan, shard)
-from repro_torch.core.precision import (DTYPES, NARROW, PAPER_CONFIGS, RMAX,
-                                        PrecisionConfig)
+from repro_torch.core.precision import (DTYPES, NARROW, PAPER_CONFIGS,
+                                        PEAK_FLOPS, RMAX, PrecisionConfig)
 from repro_torch.core.quantize import (dequant, dequant_int8, quant_block,
                                        quant_int8, storage_round)
 from repro_torch.core.refine import (RefineConfig, RefineResult,
@@ -32,7 +35,8 @@ from repro_torch.core.treematrix import (TreeSPD, storage_ratio,
                                          tree_potrf_packed)
 
 __all__ = [
-    "DTYPES", "NARROW", "PAPER_CONFIGS", "RMAX", "PrecisionConfig",
+    "DTYPES", "NARROW", "PAPER_CONFIGS", "PEAK_FLOPS", "RMAX",
+    "PrecisionConfig", "Census", "census_potrf", "census_syrk", "census_trsm",
     "PrecisionPlan", "ShardedPlan", "TileInfo", "build_plan", "shard",
     "blocked_potrf", "blocked_trsm_left", "diag_tri_inv",
     "dequant", "dequant_int8", "quant_block", "quant_int8", "storage_round",

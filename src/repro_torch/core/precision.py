@@ -7,8 +7,8 @@ every deeper level (and all diagonal leaves) runs at f32. The last entry is
 the highest precision.
 
 The ``leaf % 128`` rule is kept although no GPU kernel needs it: it keeps
-every plan identical to the reference's, tile for tile. The reference's
-TPU peak-rate table has no counterpart here.
+every plan identical to the reference's, tile for tile. :data:`PEAK_FLOPS`
+holds the H100's rates, not the reference's TPU ones.
 """
 from __future__ import annotations
 
@@ -37,6 +37,14 @@ RMAX = {
 # quantization is load-bearing; int8 is always scaled.
 NARROW = frozenset({"f16", "int8"})
 
+#: data-sheet dense peaks of one NVIDIA H100 SXM5 (80 GB HBM3, 700 W), per
+#: level name, used by the census's throughput model
+#: (:meth:`~repro_torch.core.census.Census.model_time_s`), not by the
+#: solver: int8 and f16/bf16 on the tensor cores, f32 on the CUDA cores
+#: (TF32 stays off), f64 on the tensor cores' DMMA
+PEAK_FLOPS = {"int8": 1979e12, "f16": 989e12, "bf16": 989e12,
+              "f32": 67e12, "f64": 67e12}
+
 
 @dataclasses.dataclass(frozen=True)
 class PrecisionConfig:
@@ -49,7 +57,9 @@ class PrecisionConfig:
     #: kept for field parity with the reference; the port dispatches on
     #: the tensor's device alone, so only None and "auto" are accepted
     kernel_impl: str | None = None
-    #: "blocked" (default) or "tree"; "auto" raises at factor time
+    #: "blocked" (default), "tree", or "auto": the tuning database's
+    #: measured winner for the problem size, resolved at factor time
+    #: (:mod:`repro_torch.tune`)
     engine: str = "blocked"
 
     def __post_init__(self):

@@ -8,9 +8,11 @@ selects the execution engine behind every entry point here:
 * ``"tree"``: the paper's nested recursion (:mod:`repro_torch.core.tree`),
   the oracle the blocked engine is checked against. It caches no
   diagonal-tile inverses (``linvs``): each solve inverts its leaves.
+* ``"auto"``: resolved here, at factor time, against the tuning database
+  (:mod:`repro_torch.tune`) of the device the call runs on: the measured
+  winner for the (leaf-padded) problem size, falling back to
+  ``"blocked"`` when no database entry applies.
 
-``engine="auto"`` (the tuner's choice) is not ported yet and raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
 Refinement is :func:`refine_solve`.
 
 Devices: every entry point takes ``device=``, ``"cuda"`` by default. A
@@ -29,9 +31,6 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.tree import (pad_factor, pad_spd, tree_potrf,
                                    tree_trsm_left)
 
-#: the ROADMAP item that ports what the port leaves out so far
-AUTO_ENGINE_ITEM = "ROADMAP A8 (census, tuner: engine='auto')"
-
 
 def as_tensor(x, device="cuda"):
     """A torch tensor stays as it is; anything else becomes a tensor on
@@ -45,9 +44,13 @@ def as_tensor(x, device="cuda"):
     return torch.tensor(np.asarray(x), device=dev)
 
 
-def _check_engine(cfg: PrecisionConfig) -> None:
-    if cfg.engine == "auto":
-        raise NotImplementedError(f"engine='auto' is {AUTO_ENGINE_ITEM}")
+def _autoresolve(cfg: PrecisionConfig, n: int, backend: str):
+    """Resolve ``engine="auto"`` via the tuning database of ``backend``
+    (the device type); no-op otherwise."""
+    if cfg.engine != "auto":
+        return cfg
+    from repro_torch import tune  # local: tune is a consumer of this module
+    return tune.resolve_cfg(cfg, n, backend=backend)
 
 
 def _potrf(a_padded, cfg: PrecisionConfig):
@@ -76,9 +79,8 @@ def cholesky_padded(a, cfg: PrecisionConfig | None = None, *,
     """Leaf-padded lower factor (diagonal tail, shape a multiple of
     ``cfg.leaf``); ``cholesky_padded(a)[:n, :n] == cholesky(a)``."""
     cfg = cfg or PrecisionConfig()
-    _check_engine(cfg)
     a_p, _ = pad_spd(as_tensor(a, device), cfg.leaf)
-    return _potrf(a_p, cfg)
+    return _potrf(a_p, _autoresolve(cfg, a_p.shape[-1], a_p.device.type))
 
 
 def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
@@ -100,13 +102,13 @@ def cholesky_solve(a, b, cfg: PrecisionConfig | None = None, *, l=None,
     if refine is not None:
         return refine_solve(a, b, cfg, refine=refine, l=l, linvs=linvs,
                             device=device).x
-    _check_engine(cfg)
     b = as_tensor(b, device)
     vec = b.dim() == 1
     if vec:
         b = b[:, None]
     n = b.shape[0]
     npad = -(-n // cfg.leaf) * cfg.leaf
+    cfg = _autoresolve(cfg, npad, b.device.type)
     if l is None:
         lp = cholesky_padded(a, cfg, device=device)
     else:
@@ -144,8 +146,11 @@ def refine_solve(a, b, cfg: PrecisionConfig | None = None, *,
     per-column tolerances; ``l``/``linvs`` reuse a cached factor and its
     diagonal-tile inverses."""
     from repro_torch.core import refine as _refine  # circular-import guard
-    if cfg is not None:
-        _check_engine(cfg)
+    if cfg is not None and cfg.engine == "auto":
+        npad = -(-b.shape[0] // cfg.leaf) * cfg.leaf
+        backend = (b.device.type if torch.is_tensor(b)
+                   else torch.device(device).type)
+        cfg = _autoresolve(cfg, npad, backend)
     return _refine.iterative_refine(a, b, cfg, refine, l=l, col_tol=col_tol,
                                     linvs=linvs, device=device)
 

@@ -14,9 +14,11 @@ of naming a precision ladder. The engine factorizes in its cheap ladder
 once per matrix, caches the factor, and spends iterative-refinement
 sweeps — O(n^2) each — to reach the requested digits.
 
-Left out, each raising ``NotImplementedError`` that names the ROADMAP item
-that ports it: mesh mode (``mesh=``, A9) and the tuner (``tuning_db=``,
-``engine="auto"``, A8).
+A ladder with ``engine="auto"`` is resolved per problem size against the
+tuning database (:mod:`repro_torch.tune`; ``tuning_db=`` injects one,
+else the packaged database of the engine's device type). Left out, raising
+``NotImplementedError`` that names the ROADMAP item that ports it: mesh
+mode (``mesh=``, A9).
 """
 from __future__ import annotations
 
@@ -40,7 +42,6 @@ from repro_torch.serve.metrics import MetricsTracker, NullMetrics
 from repro_torch.serve.options import SolveOptions, resolve_options
 
 MESH_ITEM = "ROADMAP A9 (distributed: SolverEngine mesh mode)"
-TUNER_ITEM = "ROADMAP A8 (census, tuner: tuning_db, engine='auto')"
 
 
 def prefill_step(params, batch, cfg: ModelConfig):
@@ -178,16 +179,12 @@ class SolverEngine:
                  metrics: MetricsTracker | None = None):
         if mesh is not None:
             raise NotImplementedError(f"mesh mode is {MESH_ITEM}")
-        if tuning_db is not None:
-            raise NotImplementedError(f"tuning_db is {TUNER_ITEM}")
         if isinstance(ladder, str):
             self.ladder_name = ladder
             self.cfg = PAPER_CONFIGS[ladder]
         else:
             self.ladder_name = ladder.describe()
             self.cfg = ladder
-        if self.cfg.engine == "auto":
-            raise NotImplementedError(f"engine='auto' is {TUNER_ITEM}")
         assert residual_dtype in self._FLOOR_DIGITS, residual_dtype
         self.residual_dtype = residual_dtype
         self.device = torch.device(device)
@@ -195,6 +192,9 @@ class SolverEngine:
         self.gmres_restart = gmres_restart
         assert max_cached_factors >= 1, max_cached_factors
         self.max_cached_factors = max_cached_factors
+        #: injected TuningDB (tests); None = the packaged database of the
+        #: device type
+        self._tuning_db = tuning_db
         #: pluggable metrics sink, shared by the scheduler/frontend
         #: stacked on this engine unless overridden
         self.metrics: MetricsTracker = (metrics if metrics is not None
@@ -206,9 +206,27 @@ class SolverEngine:
         self._steppers: collections.OrderedDict = collections.OrderedDict()
         self._cache_lock = threading.RLock()
 
+    def _tuned(self, n: int, nshards: int = 1):
+        """Tuning-database decision for ``(n, ladder, nshards)`` on the
+        engine's device type (:mod:`repro_torch.tune`)."""
+        from repro_torch import tune
+        return tune.decide(n, tune.ladder_key(self.cfg), nshards,
+                           backend=self.device.type, db=self._tuning_db)
+
     def _use_dist(self, n: int) -> bool:
         """Never: the distributed path is ROADMAP A9."""
         return False
+
+    def _cfg_for(self, n: int) -> PrecisionConfig:
+        """Per-size engine resolution for ``engine="auto"`` configs.
+
+        Factorization and every later solve against the cached factor
+        route through this, so both always agree on the engine (and thus
+        on whether ``linvs`` exist for the factor).
+        """
+        if self.cfg.engine != "auto":
+            return self.cfg
+        return dataclasses.replace(self.cfg, engine=self._tuned(n).engine)
 
     def _rcfg(self, **kw) -> RefineConfig:
         return RefineConfig(max_sweeps=self.max_sweeps,
@@ -224,9 +242,10 @@ class SolverEngine:
         inverses, so every refinement sweep's pair of triangular solves
         reuses the one-off leaf inversions (None for the tree engine,
         whose solves invert their leaves, as in the reference)."""
-        l = cholesky_padded(a, self.cfg, device=self.device)
-        linvs = (diag_tri_inv(l, self.cfg)
-                 if self.cfg.engine == "blocked" else None)
+        a = as_tensor(a, self.device)
+        cfg = self._cfg_for(a.shape[-1])
+        l = cholesky_padded(a, cfg)
+        linvs = diag_tri_inv(l, cfg) if cfg.engine == "blocked" else None
         return l, linvs
 
     def factor(self, a, cache_key=None, *, fingerprint=None):
@@ -308,7 +327,7 @@ class SolverEngine:
                                        fingerprint=opts.fingerprint)
         bmat = torch.cat([b[:, None] if b.dim() == 1 else b for b in bs],
                          dim=1)
-        res = refine_solve(a, bmat, self.cfg, refine=rcfg, l=l,
+        res = refine_solve(a, bmat, self._cfg_for(n), refine=rcfg, l=l,
                            col_tol=col_tol, linvs=linvs)
         sweeps = np.atleast_1d(res.iterations.cpu().numpy())
         resid = np.atleast_1d(res.residual.cpu().numpy())
@@ -359,7 +378,7 @@ class SolverEngine:
             if hit is not None:
                 self._steppers.move_to_end(memo_key)
                 return hit[0], hit[1], True
-        cfg = self.cfg
+        cfg = self._cfg_for(n)
         l, linvs, cached = self.factor(a, cache_key, fingerprint=fp)
         rcfg = self._rcfg(method="ir")
         rdtype = rcfg.rdtype()

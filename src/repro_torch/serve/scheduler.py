@@ -86,10 +86,6 @@ from repro_torch.serve.engine import (SolveInfo, SolverEngine,
 from repro_torch.serve.metrics import MetricsTracker
 from repro_torch.serve.options import SolveOptions, resolve_options
 
-#: the tuner's untuned serving width (repro/tune/db.py:47); the tuner,
-#: which would choose it per ladder and backend, is ROADMAP A8
-DEFAULT_MAX_BATCH = 32
-
 
 class SchedulerOverload(RuntimeError):
     """Submission rejected by admission control (factor cache would
@@ -183,7 +179,13 @@ class BatchScheduler:
                  metrics: MetricsTracker | None = None):
         self.engine = engine if engine is not None else SolverEngine()
         if max_batch is None:
-            max_batch = DEFAULT_MAX_BATCH
+            # the tuning database's serving width for this ladder and
+            # device type, falling back to the untuned 32
+            from repro_torch import tune
+            max_batch = tune.decide(
+                256, tune.ladder_key(self.engine.cfg),
+                backend=self.engine.device.type,
+                db=self.engine._tuning_db).max_batch
         assert max_batch >= 1, max_batch
         self.max_batch = max_batch
         #: async batching window; None = sync-only (or continuous)

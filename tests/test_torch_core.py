@@ -122,7 +122,8 @@ def test_pad_spd_matches_reference():
 def test_import_has_no_jax():
     """repro_torch imports neither jax nor the JAX package."""
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.serve; "
+            "repro_torch.kernels.ops, repro_torch.serve, repro_torch.tune, "
+            "repro_torch.tune.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "
@@ -146,20 +147,26 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("engine", ["tree", "auto"])
-def test_unported_engines_raise(engine):
-    """"auto" (the tuner) still raises, naming its ROADMAP item; "tree" is
-    ported (the test keeps the name of the one that pinned both raises):
-    on one tile it is the blocked factor, bitwise."""
+def test_unported_engines_raise(engine, monkeypatch):
+    """Both engines are ported (the test keeps the name of the one that
+    pinned their raises): on one tile each is the blocked factor, bitwise.
+    "auto" resolves through the tuning database: the port packages none
+    for the CPU, so it is the default, blocked."""
+    from repro_torch import tune
+    monkeypatch.delenv(tune.db.ENV_DB, raising=False)
+    tune.clear_cache()
     cfg = tc.PrecisionConfig(leaf=128, engine=engine)
     m = np.random.default_rng(1).standard_normal((128, 128))
     a = (m @ m.T + 128 * np.eye(128)).astype(np.float32)
-    if engine == "auto":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tc.cholesky(a, cfg, device="cpu")
-        return
-    assert torch.equal(tc.cholesky(a, cfg, device="cpu"),
-                       tc.cholesky(a, tc.PrecisionConfig(leaf=128),
-                                   device="cpu"))
+    try:
+        if engine == "auto":
+            assert tune.resolve_cfg(cfg, 128, backend="cpu").engine == \
+                "blocked"
+        assert torch.equal(tc.cholesky(a, cfg, device="cpu"),
+                           tc.cholesky(a, tc.PrecisionConfig(leaf=128),
+                                       device="cpu"))
+    finally:
+        tune.clear_cache()
 
 
 def test_refine_raises():

@@ -554,12 +554,22 @@ def test_scheduler_multi_column_request():
 
 
 def test_unported_serving_raises():
-    """Mesh mode and the tuner name their ROADMAP items (the decode half
-    is ported: tests/test_torch_models.py)."""
+    """Mesh mode still names its ROADMAP item; the tuner is ported (the
+    test keeps its name): ``tuning_db=`` is accepted and consulted."""
+    from repro_torch.tune import TuningDB
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SolverEngine(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        SolverEngine(tuning_db=object())
+    db = TuningDB({"version": 1, "backend": "cpu", "entries": [
+        {"backend": "cpu", "n": 128, "ladder": "f16_f32", "nshards": 1,
+         "choice": {"engine": "tree", "max_batch": 4},
+         "measurements": {"us_probe": 1.0}}], "crossovers": []})
+    eng = _engine(tuning_db=db)
+    assert eng._tuned(128).engine == "tree"
+    assert BatchScheduler(eng).max_batch == 4
+    a = _spd_u(128, seed=2)
+    b = _rhs_u(a, 3)
+    x, info = eng.solve(a, b, SolveOptions(target_digits=5))
+    assert info.converged and _relres(a, x, b) <= 1e-5
 
 
 def test_default_device_without_gpu_raises(monkeypatch):

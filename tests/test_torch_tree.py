@@ -10,6 +10,7 @@ by the ladder's coarsest level; the f64 ladder is held to 1e-12.
 """
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -403,10 +404,32 @@ def test_tree_continuous_matches_window(tree_eng):
         assert info_c.history == info_w.history, i
 
 
-def test_auto_engine_still_raises():
-    cfg = tc.PrecisionConfig(leaf=LEAF, engine="auto")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tc.cholesky(np.eye(LEAF, dtype=np.float32), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tc.refine_solve(np.eye(LEAF, dtype=np.float32),
-                        np.ones(LEAF, np.float32), cfg, device="cpu")
+def test_auto_engine_still_raises(tmp_path, monkeypatch):
+    """engine="auto" is ported (the test keeps the name of the one that
+    pinned its raise): with a tuning database that picks the tree at the
+    tree's padded n, auto is the tree engine's factor and refined solve,
+    bitwise."""
+    from repro_torch import tune
+    db = {"version": 1, "backend": "cpu", "smoke": True, "sizes": [NPAD],
+          "nshards_dist": None, "crossovers": [],
+          "entries": [{"backend": "cpu", "n": NPAD, "ladder": "f16_f32",
+                       "nshards": 1, "choice": {"engine": "tree"},
+                       "measurements": {"us_probe": 1.0}}]}
+    path = tmp_path / "db.json"
+    path.write_text(json.dumps(db), encoding="utf-8")
+    monkeypatch.setenv(tune.db.ENV_DB, str(path))
+    tune.clear_cache()
+    try:
+        cfg = _cfgs("f16_f32", engine="auto")[1]
+        assert tune.resolve_cfg(cfg, NPAD, backend="cpu").engine == "tree"
+        assert torch.equal(tc.cholesky_padded(spd(N, 1), cfg, device="cpu"),
+                           _port("f16_f32"))
+        a = spd(N, 2)
+        b = np.random.default_rng(3).standard_normal((N, 2)).astype(
+            np.float32)
+        got = tc.refine_solve(a, b, cfg, refine=2, device="cpu")
+        want = tc.refine_solve(a, b, _cfgs("f16_f32")[1], refine=2,
+                               device="cpu")
+        assert torch.equal(got.x, want.x)
+    finally:
+        tune.clear_cache()
