@@ -115,8 +115,41 @@ result line. Phases:
    columns at n = 16384 to 1e-10 (f64 residuals), and ``BatchScheduler``
    takes the database's ``max_batch``. bf16_f32's engine race is run again
    at the two grid sizes around its committed crossover and printed beside
-   the committed pick (no gate). ``census``: the tree census of each
-   ladder at n = 16384 (GEMM and leaf FLOPs by type, the low-precision
+   the committed pick (no gate). ``dist``: the distributed path on 4 ranks
+   (``repro_torch.launch.launch``: 4 processes sharing the card, their
+   collectives through gloo and host memory; not a 4-GPU node, and NCCL
+   is not used), driven by ``repro_torch.launch.drive``: first the check
+   that gloo moves CUDA tensors of every dtype through ``all_gather``,
+   ``broadcast`` and ``scatter`` (values and device), with the host
+   seconds of a 64 MiB f32 all-gather; ``dist_cholesky``
+   at n = 16384 (leaf 256, 16 tile rows a rank) for bf16_f32, f16x3_f32,
+   int8_f32 and pure_f32, the tree local engine for f16x3_f32 at 8192, the
+   four ``broadcast_diag_only`` x ``compress_comm`` schedules for f16_f32
+   at leaf 128, n = 4096, each on the paper's matrix with sqrt(n) on the
+   diagonal (so that the trailing updates move the factor's entries below
+   the diagonal by a sizable share); each factor finite, within ``TOL``
+   of the single-device factor of its engine relative to max|L|, and its
+   entries below the diagonal within ``DIST_LOWER_TOL`` relative to their
+   own max (set from the card's readings; a copy that leaves out the
+   trailing updates gave 0.55 to 0.61 there on the CPU at n = 2048), its
+   upper triangle zero, each rank's
+   bytes by collective and dtype as ``ShardedPlan.comm_name`` /
+   ``comm_quant`` prescribe, each blocked rank's launches as the schedule
+   and its 16-bit and int8 trailing updates on the ``tc`` route;
+   ``dist_cholesky_solve`` with 16 right-hand sides for bf16_f32,
+   f16x3_f32 and int8_f32, its digits within 0.3 of the single-device
+   solve's; mesh-mode ``SolverEngine("bf16_f32",
+   residual_dtype="f64")`` with rank 0 leading a ``BatchScheduler``: 8
+   requests at n = 16384 (targets 6 .. 12 digits; the later wave on the
+   cached sharded factor), one at 1024 below the threshold (local), each
+   on target within 10 sweeps and x bitwise ``engine.solve``'s; then a
+   request that rank 1 fails, which must come back as ``MeshCallError``
+   naming rank 1, and after it one on a matrix that differs from the
+   cached one off the fingerprint's samples, which must reuse the factor
+   and reach its target against its own matrix; a matrix of the wrong
+   shape refused on rank 0; every follower through the same calls; a smoke
+   run of the tuner's distributed grid, printed only. ``census``: the tree
+   census of each ladder at n = 16384 (GEMM and leaf FLOPs by type, the low-precision
    share, its model time on ``PEAK_FLOPS``) and the blocked plan's dot
    FLOPs, beside the ``path`` and ``tree_path`` lines' ``factor_ms``;
    ``PEAK_FLOPS`` must equal the card's rates on an SXM card.
@@ -346,13 +379,10 @@ def spd_tile(n, gen, dtype=torch.float32):
 
 def paper_matrix(n, seed, dtype=torch.float32):
     """Paper §IV-A (benchmarks/util.py:spd_matrix): symmetric uniform(-1, 1)
-    entries, +n on the diagonal; built on the card."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    m = torch.rand((n, n), generator=g, device="cuda", dtype=dtype)
-    m.mul_(2).sub_(1)
-    a = m.add_(m.T.clone()).mul_(0.5)
-    a.diagonal().add_(n)
-    return a
+    entries, +n on the diagonal; built on the card (the dist phase's ranks
+    build theirs with the same generator)."""
+    from repro_torch.launch.drive import spd_matrix
+    return spd_matrix(n, seed, dtype, "cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -1071,9 +1101,17 @@ def kernel_residual(rates, gen, n):
             b = torch.randn((n, k), generator=gen, device="cuda", dtype=dt)
             out = torch.empty_like(b)
             rtol, atol = tols[tn](n)
-            err = check_close(f"residual main {tn} k={k}",
-                              residual.residual_fused(a, x, b),
+            full = residual.residual_fused(a, x, b)
+            err = check_close(f"residual main {tn} k={k}", full,
                               ref.residual_ref(a, x, b), rtol, atol)
+            # a rank's block row of A (the distributed refinement's
+            # residual, P = 4): its rows bitwise the square launch's
+            w = n // 4
+            for r0 in range(0, n, w):
+                _bitwise(f"residual main {tn} k={k} rows {r0}",
+                         residual.residual_fused(a[r0:r0 + w], x,
+                                                 b[r0:r0 + w]),
+                         full[r0:r0 + w])
             esz = a.element_size()
             bound, by = bound_ms(2.0 * n * n * k, esz * (n * n + 3 * n * k),
                                  tn, rates)
@@ -1086,7 +1124,7 @@ def kernel_residual(rates, gen, n):
                 "library_ms": cuda_ms(lambda: torch.addmm(
                     b, a, x, beta=1.0, alpha=-1.0, out=out)),
                 "bound_ms": bound, "bound_by": by, "shape": [n, n, k],
-                "dtype": tn}
+                "dtype": tn, "row_blocks_bitwise": True}
         del a
     torch.cuda.empty_cache()
     return checks, {**timing["f64_k16"],
@@ -2506,6 +2544,320 @@ def census_phase(lines, rates, kind):
             "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the distributed path, 4 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+DIST_RANKS = 4
+#: what the dist phase's ranks must launch (summed over the ranks)
+DIST_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update",
+                "residual_fused", "trsm_leaf", "syrk_leaf")
+DIST_NOTE = ("4 processes sharing one card, their collectives through gloo "
+             "and host memory: the port's kernels, schedule, wire format "
+             "and numerics on the card, not a 4-GPU node; NCCL is not used")
+DIST_LADDERS = ("bf16_f32", "f16x3_f32", "int8_f32", "pure_f32")
+DIST_SOLVE_LADDERS = ("bf16_f32", "f16x3_f32", "int8_f32")
+#: limit on a dist factor's entries below the diagonal against the
+#: single-device factor's, relative to their max, by the ladder's first
+#: level: 3.4-18x the card's readings (bf16 2.2e-2, int8 4.5e-2, f16
+#: 4.1e-3, f32 1.1e-6 at n = 16384), and a quarter or less of what
+#: leaving out the trailing updates gives (0.55-0.61 at n = 2048)
+DIST_LOWER_TOL = {"bf16": 0.15, "int8": 0.15, "f16": 2e-2, "f32": 2e-5}
+DIST_SCHEDULES = [(bd, cc) for bd in (True, False) for cc in (True, False)]
+_WIDTH = {"int8": 1, "f16": 2, "bf16": 2, "f32": 4, "f64": 8}
+
+
+def dist_cases():
+    """The dist phase's cases, in the order the ranks run them
+    (repro_torch.launch.drive). The factors and solves take paper §IV-A's
+    matrix with sqrt(n) on the diagonal in place of n (condition about
+    10): its factor's entries below the diagonal are a sizable share of
+    the diagonal, and the trailing updates a sizable share of them, so
+    that a fault there shows against the single-device factor; serving
+    takes the paper's matrix itself."""
+    def shifted(n):
+        return {"n": n, "shift": math.sqrt(n)}
+    # a first, smaller factor takes each rank's first-call costs (kernel
+    # loads, the caching allocator) out of the timed full-width ones
+    cases = [{"kind": "gloo"},
+             {"kind": "factor", "ladder": "bf16_f32", "seed": 999,
+              "yardstick": True, **shifted(4096)}]
+    cases += [{"kind": "factor", "ladder": name, "seed": 1000 + i,
+               "yardstick": True, **shifted(N_MAIN)}
+              for i, name in enumerate(DIST_LADDERS)]
+    cases.append({"kind": "factor", "ladder": "f16x3_f32", "seed": 1010,
+                  "engine": "tree", "yardstick": True, **shifted(8192)})
+    cases += [{"kind": "factor", "ladder": "f16_f32", "leaf": 128,
+               "seed": 1020 + i, "broadcast_diag_only": bd,
+               "compress_comm": cc, "yardstick": True, **shifted(4096)}
+              for i, (bd, cc) in enumerate(DIST_SCHEDULES)]
+    cases += [{"kind": "solve", "ladder": name, "seed": 1030 + i, "k": 16,
+               "compare_single": True, **shifted(N_MAIN)}
+              for i, name in enumerate(DIST_SOLVE_LADDERS)]
+    cases.append({"kind": "serve", "ladder": "bf16_f32", "n": N_MAIN,
+                  "n_local": 1024, "seed": 1040,
+                  "targets": (6.0, 8.0, 10.0, 12.0), "waves": (1, 7),
+                  "residual_dtype": "f64", "max_sweeps": 10,
+                  "fault_rank": 1})
+    cases.append({"kind": "tune", "smoke": True})
+    cases.append({"kind": "imports"})
+    return cases
+
+
+def dist_wire(cfg, n, bd, cc):
+    """Bytes each rank hands each collective in one dist_cholesky, by
+    dtype, from the sharded plan alone: the (w, w) diagonal block of every
+    panel (broadcast, or all-gathered with the other ranks' blocks), and
+    for every panel but the last the solved block at ShardedPlan.comm_name
+    (16-bit 2 bytes, int8 1, f32 raw; raw f32 when uncompressed) with one
+    f32 scale where comm_quant says so."""
+    from repro_torch.core.plan import build_plan, shard
+    sp = shard(build_plan(n, cfg), DIST_RANKS)
+    w = n // DIST_RANKS
+    want = {"all_gather": {}, "broadcast": {}, "scatter": {}}
+
+    def add(op, name, nbytes):
+        want[op][name] = want[op].get(name, 0) + nbytes
+    for _ in range(DIST_RANKS):
+        add("broadcast" if bd else "all_gather", "f32", w * w * 4)
+    for j in range(DIST_RANKS - 1):
+        name = sp.comm_name(j)
+        if cc and name not in ("f32", "f64"):
+            add("all_gather", name, w * w * _WIDTH[name])
+            if sp.comm_quant(j):
+                add("all_gather", "f32", 4)
+        else:
+            add("all_gather", "f32", w * w * 4)
+    return want
+
+
+def dist_schedule(cfg, n, rank):
+    """Launches of one dist_cholesky on ``rank``, and how many of its
+    qgemm launches take the tensor cores (None: not counted). Every rank
+    factors each of the P diagonal blocks; each rank below a panel solves
+    its row block against it and updates its trailing rows (1 qgemm).
+    Blocked: a diagonal block is tps potrf_leaf, tps - 1 tri_inv_leaf and
+    panel_update; a row block's solve one batched tri_inv_leaf and
+    2 tps - 1 qgemm; the trailing qgemm takes the tensor cores where the
+    panel's comm name is 16-bit or int8. Tree: the diagonal block is the
+    recursion's factor at w (tree_schedule), the row block's solve its
+    right-side TRSM recursion over w (one qgemm a node, tri_inv_leaf and
+    trsm_leaf a leaf)."""
+    from repro_torch.core.plan import build_plan, shard
+    from repro_torch.kernels import ops
+    sp = shard(build_plan(n, cfg), DIST_RANKS)
+    tps, P, w = sp.tps, DIST_RANKS, n // DIST_RANKS
+    if cfg.engine == "tree":
+        fac, _ = tree_schedule(cfg, w)
+        trsm = dict.fromkeys(ops.LAUNCHES, 0)
+
+        def walk(m):
+            if m <= cfg.leaf:
+                trsm["tri_inv_leaf"] += 1
+                trsm["trsm_leaf"] += 1
+                return
+            trsm["qgemm"] += 1
+            walk(cfg.split(m))
+            walk(m - cfg.split(m))
+        walk(w)
+        sched = {k: P * fac[k] + rank * trsm[k] for k in fac}
+        sched["qgemm"] += rank
+        return sched, None
+    sched = {**dict.fromkeys(ops.LAUNCHES, 0), "potrf_leaf": P * tps,
+             "tri_inv_leaf": P * (tps - 1) + rank,
+             "panel_update": P * (tps - 1), "qgemm": 2 * tps * rank}
+    tc = sum(sp.comm_name(j) in ("f16", "bf16", "int8") for j in range(rank))
+    return sched, tc
+
+
+def dist_phase(kind, smi):
+    """The dist cases on DIST_RANKS ranks sharing the card, one line a
+    case from rank 0, every gate checked here; returns the lines and the
+    launches summed over the ranks."""
+    from repro_torch.core.precision import PAPER_CONFIGS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import drive, launch
+    torch.cuda.empty_cache()
+    cases = dist_cases()
+    t0 = time.perf_counter()
+    results = launch(drive.run_cases, DIST_RANKS, (cases, "cuda"),
+                     device="cuda", timeout=600)[0]
+    wall = time.perf_counter() - t0
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    lines = []
+    for case, res in zip(cases, results):
+        line = {"phase": "dist", "case": case["kind"], "ranks": DIST_RANKS,
+                "device": kind, "nvidia_smi": smi, "note": DIST_NOTE}
+        for r in (res["ranks"] if isinstance(res, dict) else ()):
+            for k, v in r.get("launches", {}).items():
+                launches[k] += v
+        if case["kind"] == "gloo":
+            if not res["ok"]:
+                raise AssertionError(f"dist: gloo moved a CUDA tensor "
+                                     f"wrongly: {res['ranks']}")
+            line.update({"collectives_on_device": res["ranks"][0]["checks"],
+                         "all_gather_mib_per_rank": res["nbytes"] / 2 ** 20,
+                         "all_gather_s_per_rank": [r["all_gather_s"]
+                                                   for r in res["ranks"]]})
+        elif case["kind"] == "factor":
+            cfg = dataclasses.replace(
+                PAPER_CONFIGS[case["ladder"]], engine=res["engine"],
+                leaf=res["leaf"])
+            bd = case.get("broadcast_diag_only", True)
+            cc = case.get("compress_comm")
+            # None: the database's choice; cuda.json has no nshards=4 entry
+            cc = True if cc is None else cc
+            label = (f"{case['ladder']} n={case['n']} leaf={cfg.leaf} "
+                     f"{res['engine']} bd={bd} cc={cc}")
+            tol = TOL[cfg.levels[0]]
+            lower_tol = DIST_LOWER_TOL[cfg.levels[0]]
+            if not (res["upper_zero"] and res["finite"]
+                    and res["rel_to_single"] < tol
+                    and res["rel_lower_to_single"] < lower_tol):
+                raise AssertionError(
+                    f"dist {label}: {res['rel_to_single']} from the "
+                    f"single-device factor relative to max|L| (tol {tol}), "
+                    f"{res['rel_lower_to_single']} below the diagonal "
+                    f"relative to its max (tol {lower_tol}), upper zero "
+                    f"{res['upper_zero']}, finite {res['finite']}")
+            want_wire = dist_wire(cfg, case["n"], bd, cc)
+            for rank, r in enumerate(res["ranks"]):
+                if r["wire"] != want_wire:
+                    raise AssertionError(f"dist {label} rank {rank}: wire "
+                                         f"{r['wire']} != {want_wire}")
+                sched, tc = dist_schedule(cfg, case["n"], rank)
+                if r["launches"] != sched:
+                    raise AssertionError(f"dist {label} rank {rank}: "
+                                         f"launches {r['launches']} != "
+                                         f"{sched}")
+                if tc is not None and r["qgemm_routes"]["tc"] != tc:
+                    raise AssertionError(f"dist {label} rank {rank}: "
+                                         f"{r['qgemm_routes']} tensor-core "
+                                         f"trailing updates, want {tc}")
+            line.update({
+                "ladder": case["ladder"], "n": case["n"], "leaf": cfg.leaf,
+                "engine": res["engine"], "broadcast_diag_only": bd,
+                "compress_comm": cc, "shift": case["shift"],
+                "rel_to_single": res["rel_to_single"],
+                "rel_lower_to_single": res["rel_lower_to_single"],
+                "tol": tol, "lower_tol": lower_tol, "upper_zero": True,
+                "finite": True,
+                "factor_ms_per_rank": [r["ms"] for r in res["ranks"]],
+                "factor_wall_s_per_rank": [r["wall_s"] for r in res["ranks"]],
+                "wire_bytes_per_rank": want_wire,
+                "launches_per_rank": [r["launches"] for r in res["ranks"]],
+                "qgemm_routes_per_rank": [r["qgemm_routes"]
+                                          for r in res["ranks"]]})
+        elif case["kind"] == "solve":
+            if not res["digits"] >= res["single_digits"] - 0.3:
+                raise AssertionError(f"dist solve {case['ladder']}: "
+                                     f"{res['digits']:.2f} "
+                                     f"digits, single-device "
+                                     f"{res['single_digits']:.2f}")
+            line.update({
+                "ladder": case["ladder"], "n": case["n"], "k": case["k"],
+                "shift": case["shift"], "digits": res["digits"],
+                "single_device_digits": res["single_digits"],
+                "factor_ms_per_rank": [r["factor_ms"] for r in res["ranks"]],
+                "solve_ms_per_rank": [r["solve_ms"] for r in res["ranks"]],
+                "solve_wall_s_per_rank": [r["solve_wall_s"]
+                                          for r in res["ranks"]],
+                "factor_and_solve_launches_per_rank": [
+                    r["launches"] for r in res["ranks"]]})
+        elif case["kind"] == "serve":
+            line.update(dist_serve_checks(case, res))
+        elif case["kind"] == "imports":
+            if any(res):
+                raise AssertionError(f"dist: ranks imported {res}")
+            line["jax_or_reference_modules_per_rank"] = res
+        else:
+            payload = res["payload"]
+            line.update({
+                "smoke": True, "wall_s": res["wall_s"],
+                "entries": [{"n": e["n"], "nshards": e["nshards"],
+                             "choice": e["choice"],
+                             "measurements": e["measurements"]}
+                            for e in payload["entries"]
+                            if e["nshards"] == DIST_RANKS],
+                "crossovers": payload["crossovers"],
+                "note": DIST_NOTE + "; printed only, nothing of it goes "
+                        "into cuda.json"})
+        lines.append(line)
+    lines.append({"phase": "dist_launches", "wall_s": wall,
+                  "summed_over_ranks": launches})
+    for k in DIST_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was not launched on the dist path")
+    return lines, launches
+
+
+def dist_serve_checks(case, res):
+    """Mesh-mode serving: the large requests ran distributed, the later
+    wave found the sharded factor cached, every request reached its
+    target within the sweep budget, the small one stayed local, and each x
+    is bitwise engine.solve's for the same request."""
+    sched, direct = res["scheduled"], res["direct"]
+    waves = case["waves"]
+    for i, (s, d, t) in enumerate(zip(sched, direct, res["targets"])):
+        info = s["info"]
+        if not (info["distributed"] and info["converged"]
+                and info["sweeps"] <= case["max_sweeps"]
+                and s["digits"] >= t - 0.05):
+            raise AssertionError(f"dist serve request {i}: {info}, "
+                                 f"{s['digits']:.2f} digits for {t}")
+        if info["factor_cached"] != (i >= waves[0]):
+            raise AssertionError(f"dist serve request {i}: factor_cached "
+                                 f"{info['factor_cached']}")
+        if not np.array_equal(s["x"], d["x"]):
+            raise AssertionError(f"dist serve request {i}: x differs from "
+                                 "engine.solve's")
+    loc = res["local"]
+    if loc["info"]["distributed"] or not loc["info"]["converged"] or \
+            not np.array_equal(loc["x"], res["direct_local"]["x"]):
+        raise AssertionError(f"dist serve local request: {loc['info']}")
+    fault = res["fault"]
+    want = f"rank {case['fault_rank']}: RuntimeError: fault injected"
+    if fault is None or fault["type"] != "MeshCallError" or \
+            want not in fault["message"]:
+        raise AssertionError(f"dist serve: the failed request gave {fault}")
+    if res["wrong_shape"] is None or \
+            res["wrong_shape"]["type"] != "ValueError":
+        raise AssertionError(f"dist serve: the wrong shape gave "
+                             f"{res['wrong_shape']}")
+    off = res["off_fingerprint"]
+    if not (off["info"]["distributed"] and off["info"]["factor_cached"]
+            and off["info"]["converged"]
+            and off["digits"] >= off["target"] - 0.05
+            and off["digits_against_a"] < off["target"] - 2):
+        raise AssertionError(f"dist serve: the request after the failed "
+                             f"one, on a matrix off the fingerprint: "
+                             f"{off['info']}, {off['digits']:.2f} digits "
+                             f"({off['digits_against_a']:.2f} against the "
+                             f"cached matrix) for {off['target']}")
+    followed = [r["followed"] for r in res["ranks"][1:]]
+    if len(set(followed)) != 1:
+        raise AssertionError(f"dist serve: followers ran {followed} calls")
+    return {"ladder": case["ladder"], "n": case["n"],
+            "n_local": case["n_local"], "residual_dtype": "f64",
+            "waves": list(waves), "wave_wall_s": res["wave_wall_s"],
+            "targets": res["targets"],
+            "digits": [s["digits"] for s in sched],
+            "sweeps": [s["info"]["sweeps"] for s in sched],
+            "factor_cached": [s["info"]["factor_cached"] for s in sched],
+            "distributed": [s["info"]["distributed"] for s in sched],
+            "local": {"distributed": False, "digits": loc["digits"],
+                      "sweeps": loc["info"]["sweeps"]},
+            "failed_request": fault["message"],
+            "wrong_shape": res["wrong_shape"]["message"],
+            "off_fingerprint": {"digits": off["digits"],
+                                "digits_against_cached": off[
+                                    "digits_against_a"],
+                                "target": off["target"],
+                                "sweeps": off["info"]["sweeps"],
+                                "factor_cached": True},
+            "calls_followed_per_rank": followed,
+            "x_bitwise_engine_solve": True}
+
+
 def factor_probe(when, n, seed, reps=3):
     """The blocked f16x3_f32 factor, the main path's, timed ``reps`` times
     (CUDA events and the host clock), beside the allocator's reserved
@@ -2998,6 +3350,11 @@ def main() -> int:
           [tune_db_line, tune_smoke_search, lambda: tune_auto_solves(720),
            lambda: tune_serving(N_MAIN, 740), tune_fresh_race])
     emit(census_phase(lines, rates, kind))
+    dist_lines, dist_launches = dist_phase(kind, smi)
+    for line in dist_lines:
+        emit(line)
+    for k in launches:
+        launches[k] += dist_launches.get(k, 0)
 
     # model serving: gemma-2b at full width and depth, bf16
     cfg, params, gib = _model("gemma-2b", 900)

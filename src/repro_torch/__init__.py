@@ -8,14 +8,17 @@ default blocked one and the paper's nested recursion (``engine="tree"``,
 with the packed tree storage ``TreeSPD``), the census of the recursion
 (``repro_torch.core.census``), the measured-search tuner and its
 database (``repro_torch.tune``, ``engine="auto"``), iterative refinement
-(``refine_solve``) and solve serving (``repro_torch.serve``), and the
-model zoo's dense family (``repro_torch.configs``, ``repro_torch.models``)
+(``refine_solve``) and solve serving (``repro_torch.serve``, with its
+mesh mode), the distributed factor and solve on ``torch.distributed``
+(``repro_torch.core.distributed``, ranks started by
+``repro_torch.launch``), and the model zoo's dense family (``repro_torch.configs``, ``repro_torch.models``)
 served by ``prefill_step``, ``serve_step`` and ``generate``, with nine
 kernels; the rest follows (ROADMAP.md, queue A).
 """
 from repro_torch.core import (PAPER_CONFIGS, PrecisionConfig, RefineConfig,
                               RefineResult, TreeSPD, build_plan, cholesky,
                               cholesky_padded, cholesky_solve, diag_tri_inv,
+                              distributed,
                               gmres_refine, iterative_refine, logdet,
                               pad_factor, pad_spd, refine_solve,
                               solve_factored, storage_ratio, tree_potrf,
@@ -25,7 +28,8 @@ from repro_torch.serve.engine import generate, prefill_step, serve_step
 
 __all__ = ["PAPER_CONFIGS", "PrecisionConfig", "RefineConfig",
            "RefineResult", "TreeSPD", "build_plan", "cholesky",
-           "cholesky_padded", "cholesky_solve", "diag_tri_inv", "generate",
+           "cholesky_padded", "cholesky_solve", "diag_tri_inv",
+           "distributed", "generate",
            "gmres_refine", "iterative_refine", "logdet", "pad_factor",
            "pad_spd", "prefill_step", "refine_solve", "serve_step",
            "solve_factored", "storage_ratio",

@@ -11,6 +11,8 @@ Public API of this slice of the port (counterparts in ``repro.core``):
   tree_potrf, tree_trsm, tree_syrk, tree_trsm_left   — tree engine
   TreeSPD, tree_potrf_packed, storage_ratio          — packed tree storage
   pad_spd, pad_factor
+  distributed (module)   — block-row Cholesky and solve on torch.distributed
+                           (dist_cholesky, dist_cholesky_solve)
 """
 from repro_torch.core.blocked import (blocked_potrf, blocked_trsm_left,
                                       diag_tri_inv)
@@ -33,6 +35,7 @@ from repro_torch.core.tree import (pad_factor, pad_spd, tree_potrf,
                                    tree_syrk, tree_trsm, tree_trsm_left)
 from repro_torch.core.treematrix import (TreeSPD, storage_ratio,
                                          tree_potrf_packed)
+from repro_torch.core import distributed  # noqa: E402 (uses the above)
 
 __all__ = [
     "DTYPES", "NARROW", "PAPER_CONFIGS", "PEAK_FLOPS", "RMAX",
@@ -45,5 +48,5 @@ __all__ = [
     "cholesky", "cholesky_padded", "cholesky_solve", "logdet",
     "refine_solve", "solve_factored", "pad_factor", "pad_spd",
     "tree_potrf", "tree_syrk", "tree_trsm", "tree_trsm_left",
-    "TreeSPD", "storage_ratio", "tree_potrf_packed",
+    "TreeSPD", "storage_ratio", "tree_potrf_packed", "distributed",
 ]

@@ -1,9 +1,10 @@
 // residual_fused: out = b - A @ x, the refinement sweep's residual.
 //
 // Replaces the Pallas kernel repro/kernels/residual.py:residual_fused. A is
-// (n, n) with unit column stride; x, b and out are (n, k), read and written
-// through their strides, so a column block of the refinement stepper's slot
-// state needs no copy. f32 operands accumulate in f32, f64 in f64, and the
+// (m, n) with unit column stride (m = n on one device; a block row of the
+// matrix, m = n / P, on a rank of the distributed solver); x is (n, k), b and
+// out are (m, k), read and written through their strides, so a column block
+// of the refinement stepper's slot state needs no copy. f32 operands accumulate in f32, f64 in f64, and the
 // epilogue computes b - acc in that type, as residual_ref does.
 //
 // What bounds it on the card: every sweep streams A once (n^2 elements) and
@@ -117,8 +118,8 @@ __host__ __device__ constexpr int ring_bytes() {
 // unit-stride dimension of a slot block). Past n and past k: zeros.
 template <typename T, int KC, bool ALIGNED>
 __device__ __forceinline__ void issue(Stage<T, KC>& st, const T* __restrict__ A, ll lda,
-                                      const T* __restrict__ X, ll sx0, ll sx1, int n, int c0,
-                                      int kc, int rowb, int j0) {
+                                      const T* __restrict__ X, ll sx0, ll sx1, int m, int n,
+                                      int c0, int kc, int rowb, int j0) {
   using S = Shape<T, KC>;
   constexpr int VEC = S::VEC, JC = S::JC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -127,13 +128,13 @@ __device__ __forceinline__ void issue(Stage<T, KC>& st, const T* __restrict__ A,
   for (int i = 0; i < S::ROWS / R_WARPS; ++i) {
     const int rr = warp + R_WARPS * i, row = rowb + rr;
     T* d = &st.a[rr][VEC * lane];
-    const T* p = A + (ll)min(row, n - 1) * lda + j;
+    const T* p = A + (ll)min(row, m - 1) * lda + j;
     if (ALIGNED && j + VEC <= n) {
-      cp_async_zfill<16>(d, p, row < n);
+      cp_async_zfill<16>(d, p, row < m);
     } else {
 #pragma unroll
       for (int q = 0; q < VEC; ++q)
-        cp_async_zfill<sizeof(T)>(d + q, (row < n && j + q < n) ? p + q : A, row < n && j + q < n);
+        cp_async_zfill<sizeof(T)>(d + q, (row < m && j + q < n) ? p + q : A, row < m && j + q < n);
     }
   }
 #pragma unroll
@@ -159,7 +160,7 @@ template <typename T, int KC, bool ALIGNED, int MINB>
 __global__ void __launch_bounds__(R_THREADS, MINB)
 residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0, ll sx1,
                 const T* B, ll sb0, ll sb1, T* O, ll so0, ll so1,
-                int n, int k) {
+                int m, int n, int k) {
   using S = Shape<T, KC>;
   constexpr int VEC = S::VEC, JC = S::JC, RPW = S::RPW, KCH = S::KCH;
   extern __shared__ __align__(16) uint8_t ring_raw[];
@@ -183,7 +184,7 @@ residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0
 #pragma unroll
   for (int t = 0; t < RS - 1; ++t) {
     if (t < nch)
-      issue<T, KC, ALIGNED>(stage(t), A, lda, X, sx0, sx1, n, c0, kc, rowb, t * JC);
+      issue<T, KC, ALIGNED>(stage(t), A, lda, X, sx0, sx1, m, n, c0, kc, rowb, t * JC);
     asm volatile("cp.async.commit_group;" ::: "memory");
   }
   for (int t = 0; t < nch; ++t) {
@@ -191,7 +192,7 @@ residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0
     __syncthreads();  // chunk t is everyone's; stage (t - 1) % RS is free
     const int tn = t + RS - 1;
     if (tn < nch)
-      issue<T, KC, ALIGNED>(stage(tn), A, lda, X, sx0, sx1, n, c0, kc, rowb, tn * JC);
+      issue<T, KC, ALIGNED>(stage(tn), A, lda, X, sx0, sx1, m, n, c0, kc, rowb, tn * JC);
     asm volatile("cp.async.commit_group;" ::: "memory");
     const Stage<T, KC>& st = stage(t);
     T a[RPW][VEC];
@@ -234,7 +235,7 @@ residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0
       T v = acc[r][c];
 #pragma unroll
       for (int o = 16; o; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
-      if (row < n && lane == c && cg0 + c < kc) {
+      if (row < m && lane == c && cg0 + c < kc) {
         const ll col = c0 + cg0 + c;
         O[(ll)row * so0 + col * so1] = B[(ll)row * sb0 + col * sb1] - v;
       }
@@ -244,7 +245,7 @@ residual_kernel(const T* __restrict__ A, ll lda, const T* __restrict__ X, ll sx0
 
 template <typename T, int KC, bool ALIGNED>
 static int launch_kc(const T* A, ll lda, const T* X, ll sx0, ll sx1, const T* B, ll sb0, ll sb1,
-                     T* O, ll so0, ll so1, int n, int k, cudaStream_t stream) {
+                     T* O, ll so0, ll so1, int m, int n, int k, cudaStream_t stream) {
   // f64 at 16 columns holds 64 f64 accumulators a thread: one block an SM
   constexpr int MINB = (sizeof(T) == 8 && KC == 16) ? 1 : 2;
   constexpr int SMEM = ring_bytes<T, KC>();
@@ -256,40 +257,41 @@ static int launch_kc(const T* A, ll lda, const T* X, ll sx0, ll sx1, const T* B,
     configured = true;
   }
   const int rows = Shape<T, KC>::ROWS;
-  dim3 grid((n + rows - 1) / rows, (k + KC - 1) / KC);
+  dim3 grid((m + rows - 1) / rows, (k + KC - 1) / KC);
   residual_kernel<T, KC, ALIGNED, MINB><<<grid, R_THREADS, SMEM, stream>>>(
-      A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k);
+      A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, m, n, k);
   RETURN_LAUNCH_STATUS();
 }
 
 template <typename T, int KC>
 static int launch_kc(const void* A, ll lda, const void* X, ll sx0, ll sx1, const void* B,
-                     ll sb0, ll sb1, void* O, ll so0, ll so1, int n, int k, int aligned,
-                     cudaStream_t stream) {
+                     ll sb0, ll sb1, void* O, ll so0, ll so1, int m, int n, int k,
+                     int aligned, cudaStream_t stream) {
   if (aligned)
     return launch_kc<T, KC, true>((const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1,
-                                  (T*)O, so0, so1, n, k, stream);
+                                  (T*)O, so0, so1, m, n, k, stream);
   return launch_kc<T, KC, false>((const T*)A, lda, (const T*)X, sx0, sx1, (const T*)B, sb0, sb1,
-                                 (T*)O, so0, so1, n, k, stream);
+                                 (T*)O, so0, so1, m, n, k, stream);
 }
 
 // The column chunk is the narrowest of 1, 4, 16 that holds k (16 beyond).
 template <typename T>
 static int launch(const void* A, ll lda, const void* X, ll sx0, ll sx1, const void* B, ll sb0,
-                  ll sb1, void* O, ll so0, ll so1, int n, int k, int aligned, void* stream) {
+                  ll sb1, void* O, ll so0, ll so1, int m, int n, int k, int aligned,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (k == 1)
-    return launch_kc<T, 1>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k, aligned, s);
+    return launch_kc<T, 1>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, m, n, k, aligned, s);
   if (k <= 4)
-    return launch_kc<T, 4>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k, aligned, s);
-  return launch_kc<T, 16>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k, aligned, s);
+    return launch_kc<T, 4>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, m, n, k, aligned, s);
+  return launch_kc<T, 16>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, m, n, k, aligned, s);
 }
 
 #define RESIDUAL_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(const void* A, ll lda, const void* X, ll sx0, ll sx1, const void* B, \
-                      ll sb0, ll sb1, void* O, ll so0, ll so1, int n, int k, int aligned,  \
-                      void* stream) {                                                    \
-    return launch<T>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, n, k, aligned,        \
+                      ll sb0, ll sb1, void* O, ll so0, ll so1, int m, int n, int k,        \
+                      int aligned, void* stream) {                                       \
+    return launch<T>(A, lda, X, sx0, sx1, B, sb0, sb1, O, so0, so1, m, n, k, aligned,     \
                      stream);                                                            \
   }
 

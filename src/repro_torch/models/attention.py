@@ -11,7 +11,7 @@ softmax against the cache, in f32, in plain torch as in the reference.
 
 Query head ``h`` reads kv head ``h // G`` (``h = kv * G + g``), so
 repeated keys and values are never materialized. No ``sharder`` argument:
-the mesh path is ROADMAP A9/A12.
+the model's mesh path (DTensor) is ROADMAP A12.
 """
 from __future__ import annotations
 

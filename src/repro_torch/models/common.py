@@ -3,7 +3,8 @@
 Counterpart of ``repro/models/common.py``. The reference's ``Sharder`` /
 ``NO_SHARD`` (GSPMD sharding constraints under a mesh) are left out, and
 so none of the functions here takes a ``sharder`` argument: their mesh
-counterpart is ROADMAP A9/A12 (DTensor). ``cross_entropy`` belongs to
+counterpart (model weights and activations as DTensors) is ROADMAP A12;
+the distributed solver (A9, ``core/distributed.py``) shards no model. ``cross_entropy`` belongs to
 training and is not ported yet either.
 
 Each function repeats the reference's casts in the reference's order:

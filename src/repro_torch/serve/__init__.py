@@ -4,7 +4,10 @@ from HERE (counterpart of ``repro.serve``).
 The stack, bottom-up:
 
 * :class:`SolverEngine` — accuracy-targeted SPD solves over a
-  fingerprint-guarded factor cache (``solve`` / ``solve_batched``).
+  fingerprint-guarded factor cache (``solve`` / ``solve_batched``);
+  with ``mesh=``, large matrices are factored and solved on a
+  ``torch.distributed`` mesh (driven SPMD, or with rank 0 leading:
+  ``lead()`` / ``follow()``).
 * :class:`BatchScheduler` — cross-request batching: windowed drains or
   continuous batching (``continuous=True``; mid-flight column
   join/retire). Raises :class:`SchedulerOverload` on admission-control
@@ -21,7 +24,8 @@ The model-serving half: :func:`prefill_step`, :func:`serve_step` and
 :func:`generate` (the dense family of the model zoo; the rest is ROADMAP
 A12).
 """
-from repro_torch.serve.engine import (SolveInfo, SolverEngine, generate,
+from repro_torch.serve.engine import (MeshCallError, SolveInfo,
+                                      SolverEngine, generate,
                                       matrix_fingerprint, prefill_step,
                                       serve_step)
 from repro_torch.serve.frontend import ServeFrontend
@@ -34,6 +38,7 @@ from repro_torch.serve.scheduler import (BatchScheduler, SchedulerOverload,
 __all__ = [
     "BatchScheduler",
     "InMemoryMetrics",
+    "MeshCallError",
     "MetricsTracker",
     "NullMetrics",
     "SchedulerOverload",

@@ -4,7 +4,26 @@ Counterpart of ``repro/serve/scheduler.py``, on the port's engine: the
 same grouping, ordering, admission, async and continuous loops, with torch
 tensors in place of jax arrays. There is no jit boundary here; the slot
 loop's sweep is a host call into :class:`~repro_torch.core.refine
-.RefineStepper`. Distributed-path requests do not exist yet (ROADMAP A9).
+.RefineStepper`.
+
+**On a mesh-mode engine** (``SolverEngine(mesh=...)``), rank 0 of the
+engine's mesh axis alone runs the scheduler, inside ``with
+engine.lead():``, and every other rank of the axis runs
+``engine.follow()``. JAX has one controller for the whole mesh; torch has
+one per rank, and if each rank's worker formed its own batching windows,
+timing could order the collectives differently on different ranks and
+the run would deadlock. So rank 0 is the single controller: each
+distributed engine call it makes (a windowed drain's stacked refine call)
+is checked there, then broadcast to the followers with
+``broadcast_object_list`` (the options, the right-hand sides, the
+matrix's fingerprint) and runs on every rank in the order rank 0 made it,
+the matrix scattered to the ranks by block rows; the engine serializes
+rank 0's distributed calls, so the worker thread and direct callers
+interleave safely. A call that fails on any rank raises
+:class:`~repro_torch.serve.engine.MeshCallError` on every rank: the
+worker hands it to the call's futures and serves the next window. Requests below
+the engine's ``dist_threshold`` run on rank 0 alone. Leaving ``lead()``
+releases the followers.
 
 Production solve traffic is bursty and highly redundant: GP
 hyperparameter sweeps, K-FAC-style optimizers and ranking backends fire
@@ -62,8 +81,9 @@ mid-flight from queued requests sharing the factor fingerprint, so a
 request's latency tracks its own difficulty instead of the window's
 slowest member. Classic IR is column-local, so a column's trajectory is
 identical in either mode (tests/test_torch_serve.py pins continuous ==
-window column-for-column); GMRES-IR requests fall back to a windowed
-drain of their group. Per-request
+window column-for-column); GMRES-IR and distributed-path requests fall
+back to a windowed drain of their group (the engine asserts that no
+distributed request reaches the slot loop). Per-request
 ``deadline_ms`` is enforced between sweeps: an expired request retires
 immediately with its best-so-far iterate and ``SolveInfo
 .deadline_expired`` set.
@@ -598,7 +618,7 @@ class BatchScheduler:
 
     def _drain_group(self, key):
         """Windowed drain of ONE group — the continuous worker's
-        fallback for GMRES-IR / oversized requests. A
+        fallback for GMRES-IR / distributed / oversized requests. A
         failing chunk forwards its exception to its futures (and
         ``self.failed``) without taking down the worker."""
         with self._lock:

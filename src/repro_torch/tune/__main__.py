@@ -6,6 +6,9 @@ Regenerate the card's packaged database (on a machine with the card;
     PYTHONPATH=src python -m repro_torch.tune \\
         --ladders pure_f32,bf16_f32,f16x3_f32,int8_f32
 
+``--nshards P`` (P >= 2) also races the distributed grid: the command
+starts P ranks on this machine (gloo; on the card's machine they share
+its cards) and rank 0 writes the database.
 ``--ladders`` takes ``PAPER_CONFIGS`` names or canonical keys; the
 database is keyed by the canonical key (``ladder_key``: ``pure_f32`` is
 ``f32``, ``f16x3_f32`` is ``f16_f16_f16_f32``), which is what
@@ -38,6 +41,8 @@ def main(argv=None) -> int:
                          "names (f16x3_f32) or canonical keys, the levels "
                          "joined by '_' (f16_f16_f16_f32), which the "
                          "database is keyed by")
+    ap.add_argument("--nshards", type=int, default=0,
+                    help="ranks of the distributed grid (>= 2 to race it)")
     ap.add_argument("--verify", default=None, metavar="PATH",
                     help="validate an existing database and check the "
                          "lookup follows its crossovers; no tuning run")
@@ -62,9 +67,15 @@ def main(argv=None) -> int:
     from repro_torch.tune.search import autotune
     ladders = tuple(tdb.ladder_key(PAPER_CONFIGS[x]) if x in PAPER_CONFIGS
                     else x for x in args.ladders.split(","))
-    print("name,us_per_call,derived")
-    payload = autotune(args.backend, smoke=args.smoke, ladders=ladders,
-                       device=args.backend)
+    print("name,us_per_call,derived", flush=True)
+    kwargs = dict(smoke=args.smoke, ladders=ladders, device=args.backend,
+                  nshards=args.nshards)
+    if args.nshards >= 2:
+        from repro_torch.launch.mesh import launch
+        payload = launch(autotune, args.nshards, (args.backend,), kwargs,
+                         device=args.backend, timeout=6 * 3600.0)[0]
+    else:
+        payload = autotune(args.backend, **kwargs)
     out = args.out or os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                    "data", f"{payload['backend']}.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

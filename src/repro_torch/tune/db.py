@@ -46,8 +46,8 @@ ENV_DB = "REPRO_TORCH_TUNING_DB"
 DEFAULTS = {
     "engine": "blocked",        # PrecisionConfig default
     "leaf": None,               # keep the caller's leaf
-    "compress_comm": True,      # mesh mode's knob (ROADMAP A9)
-    "dist_threshold": 2048,     # mesh mode's knob (ROADMAP A9)
+    "compress_comm": True,      # mesh mode's knob (core/distributed.py)
+    "dist_threshold": 2048,     # mesh mode's knob (SolverEngine)
     "max_batch": 32,            # BatchScheduler default
     "max_wait_ms": 5.0,         # async batching window suggestion
 }

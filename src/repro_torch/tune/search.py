@@ -22,8 +22,16 @@ noise tolerance (:data:`REL_TOL`): the blocked engine must beat the tree
 by more than timer noise to win a size, both in the per-entry choice and
 in the crossover interpolation.
 
-The reference's distributed grid (``dist_cholesky`` on a mesh) is
-ROADMAP A9: here ``nshards`` is 0 and ``nshards >= 2`` raises.
+With ``nshards >= 2`` the search also races the distributed path
+(:func:`~repro_torch.core.distributed.dist_cholesky` on a 1-D mesh of
+``nshards`` ranks): both local engines on full-precision gathers, the
+compressed collective, and the size from which the distributed factor
+beats the best single-device one (``dist_threshold``). That grid runs
+collectively: every rank of a ``torch.distributed`` group of ``nshards``
+calls :func:`autotune` with the same arguments (``python -m
+repro_torch.tune --nshards P`` starts the ranks). Rank 0 alone races the
+single-device grid and the serving width, so those races do not share
+the ranks' card, and its payload is the one every rank returns.
 """
 from __future__ import annotations
 
@@ -45,13 +53,14 @@ LEAVES = (128, 256)
 ENGINES = ("tree", "blocked")
 MAX_BATCHES = (8, 16, 32)
 
+DIST_LEAF = 128         # several tile rows per shard at the grid's sizes
+
 SMOKE_SIZES = (256, 512)
-#: the reference's grid (512 .. 2048, chosen for a CPU) widened to the
+SMOKE_DIST_SIZES = (512, 1024)
+#: the reference's grids (512 .. 2048, chosen for a CPU) widened to the
 #: sizes the card's paths run
 FULL_SIZES = (512, 1024, 2048, 4096, 8192, 16384)
-
-#: the ROADMAP item of the distributed grid
-DIST_ITEM = "ROADMAP A9 (distributed: the tuner's nshards >= 2 grid)"
+FULL_DIST_SIZES = FULL_SIZES
 
 
 def timeit(fn, *args, warmup=2, iters=5, device="cuda"):
@@ -177,6 +186,44 @@ def _tune_single(n, levels, timer, log, device="cuda"):
     return choice, meas, per_engine
 
 
+def _tune_dist(n, levels, mesh, timer, log, device="cuda"):
+    """Engine + collective-compression race on the distributed path (every
+    rank runs it; each candidate call is collective)."""
+    import dataclasses
+
+    from repro_torch.core.distributed import dist_cholesky, shard_rows
+    from repro_torch.core.precision import PrecisionConfig
+    from repro_torch.core.solve import as_tensor
+    cfg = PrecisionConfig(levels=levels, leaf=DIST_LEAF)
+    a = as_tensor(_spd(n), device)
+    nshards = mesh.size()
+
+    # one interleaved race: both local engines on identical full-precision
+    # gathers, plus the compressed collective on the blocked engine (its
+    # f32 side is the blocked candidate)
+    def make(cfg_e, cc):
+        return lambda: (functools.partial(dist_cholesky, mesh=mesh,
+                                          cfg=cfg_e, compress_comm=cc),
+                        (shard_rows(a.clone(), mesh),))
+    cands = {}
+    for eng in ENGINES:
+        cands[f"us_local_{eng}"] = make(dataclasses.replace(cfg, engine=eng),
+                                        False)
+    cands["us_comm_compressed"] = make(cfg, True)
+    meas = {}
+    for name, t in race(timer, cands).items():
+        meas[name] = round(t, 1)
+        log(f"tune_dist_n{n}_{name[3:]}", t, f"nshards={nshards}")
+    meas["us_comm_f32"] = meas["us_local_blocked"]
+    choice = {
+        "engine": _won(meas["us_local_tree"], meas["us_local_blocked"]),
+        "leaf": DIST_LEAF,
+        "compress_comm": meas["us_comm_compressed"] <= meas["us_comm_f32"],
+    }
+    per_engine = {e: meas[f"us_local_{e}"] for e in ENGINES}
+    return choice, meas, per_engine
+
+
 def _tune_serving(levels, timer, log, *, n=256, n_rhs=16, device="cuda"):
     """Scheduler batch-width race: chunked multi-RHS refine calls."""
     from repro_torch.core.precision import PrecisionConfig
@@ -240,38 +287,53 @@ def _refit_engines(entries, ladder, nshards, xn):
 # the search
 # ---------------------------------------------------------------------------
 def autotune(backend=None, *, ladders=("bf16_f32",), sizes=None,
-             smoke=False, timer=None, nshards=0, serving=True, log=None,
-             device="cuda"):
+             dist_sizes=None, smoke=False, timer=None, nshards=0,
+             serving=True, log=None, device="cuda"):
     """Run the measured search on ``device``; returns a tuning-database
     payload.
 
     ``backend`` is the payload's key, the type of ``device`` by default.
     ``timer(fn, *args) -> us`` is injectable (tests pass a deterministic
     fake; the default is :func:`timeit`). ``ladders`` entries are
-    canonical ladder keys (``"bf16_f32"``). ``nshards`` must stay 0: the
-    distributed grid is ROADMAP A9.
+    canonical ladder keys (``"bf16_f32"``). ``nshards >= 2`` adds the
+    distributed grid (``dist_sizes``); every rank of a process group of
+    that size must then make the same call (module docstring).
     """
-    if nshards >= 2:
-        raise NotImplementedError(f"autotune(nshards={nshards}) is "
-                                  f"{DIST_ITEM}")
     backend = backend or torch.device(device).type
     sizes = tuple(sizes or (SMOKE_SIZES if smoke else FULL_SIZES))
+    dist_sizes = tuple(dist_sizes
+                       or (SMOKE_DIST_SIZES if smoke else FULL_DIST_SIZES))
     if timer is None:
         timer = functools.partial(timeit, warmup=1 if smoke else 2,
                                   iters=3 if smoke else 7, device=device)
     if log is None:
         def log(name, us, derived):
             print(f"{name},{us:.1f},{derived}", flush=True)
+    lead, mesh = True, None
+    if nshards >= 2:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_mesh
+        if not dist.is_initialized() or dist.get_world_size() != nshards:
+            raise ValueError(f"autotune(nshards={nshards}) runs on every "
+                             f"rank of a process group of {nshards} "
+                             "(repro_torch.launch.launch starts one)")
+        mesh = make_mesh((nshards,), ("model",), torch.device(device).type)
+        lead = dist.get_rank() == 0
+        if not lead:
+            def log(name, us, derived):
+                pass
 
     entries, crossovers = [], []
     for ladder in ladders:
         levels = tuple(ladder.split("_"))
         serve_choice, serve_meas = ({}, {})
-        if serving:
+        singles = {}
+        if serving and lead:
             serve_choice, serve_meas = _tune_serving(levels, timer, log,
                                                      device=device)
-        singles = {}
-        for n in sizes:
+        # -- single-device grid (rank 0 alone) ----------------------------
+        for n in sizes if lead else ():
             choice, meas, per_engine = _tune_single(n, levels, timer, log,
                                                     device)
             singles[n] = per_engine
@@ -280,25 +342,61 @@ def autotune(backend=None, *, ladders=("bf16_f32",), sizes=None,
             entries.append({"backend": backend, "n": n, "ladder": ladder,
                             "nshards": 1, "choice": choice,
                             "measurements": meas})
-        grid = sorted(singles)
-        xn = interp_crossover(grid,
-                              [singles[n]["tree"] for n in grid],
-                              [singles[n]["blocked"] for n in grid])
-        crossovers.append({
-            "backend": backend, "ladder": ladder, "nshards": 1,
-            "knob": "engine", "below": "tree", "above": "blocked",
-            "n": xn})
-        _refit_engines(entries, ladder, 1, xn)
-        # no distributed grid: the threshold stays the untuned default
+        if lead:
+            grid = sorted(singles)
+            xn = interp_crossover(grid,
+                                  [singles[n]["tree"] for n in grid],
+                                  [singles[n]["blocked"] for n in grid])
+            crossovers.append({
+                "backend": backend, "ladder": ladder, "nshards": 1,
+                "knob": "engine", "below": "tree", "above": "blocked",
+                "n": xn})
+            _refit_engines(entries, ladder, 1, xn)
+        # -- distributed grid (every rank) -----------------------------------
+        dists = {}
+        for n in dist_sizes if nshards >= 2 else ():
+            if n % (nshards * DIST_LEAF) != 0:
+                continue
+            choice, meas, per_engine = _tune_dist(n, levels, mesh, timer,
+                                                  log, device)
+            dists[n] = per_engine
+            entries.append({"backend": backend, "n": n, "ladder": ladder,
+                            "nshards": nshards, "choice": choice,
+                            "measurements": meas})
+        if dists:
+            grid = sorted(dists)
+            xn = interp_crossover(grid,
+                                  [dists[n]["tree"] for n in grid],
+                                  [dists[n]["blocked"] for n in grid])
+            crossovers.append({
+                "backend": backend, "ladder": ladder, "nshards": nshards,
+                "knob": "engine", "below": "tree", "above": "blocked",
+                "n": xn})
+            _refit_engines(entries, ladder, nshards, xn)
+            log(f"tune_crossover_{ladder}_p{nshards}", 0.0,
+                f"engine_crossover_n={xn}")
+        # dist_threshold: the smallest n where the distributed path beats
+        # the best single-device engine; a grid where it never wins keeps
+        # the default
+        thr = DEFAULTS["dist_threshold"]
+        wins = [n for n in sorted(set(singles) & set(dists))
+                if min(dists[n].values()) < min(singles[n].values())]
+        if wins:
+            thr = int(wins[0])
         for e in entries:
             if e["ladder"] == ladder:
-                e["choice"].setdefault("dist_threshold",
-                                       DEFAULTS["dist_threshold"])
+                e["choice"].setdefault("dist_threshold", thr)
 
     payload = {"version": SCHEMA_VERSION, "backend": backend,
                "smoke": bool(smoke), "sizes": list(sizes),
-               "nshards_dist": None, "entries": entries,
-               "crossovers": crossovers}
+               "nshards_dist": nshards if nshards >= 2 else None,
+               "entries": entries, "crossovers": crossovers}
+    if mesh is not None:
+        # rank 0 raced the single-device grid: its payload is the result
+        import torch.distributed as dist
+        box = [payload]
+        dist.broadcast_object_list(box, src=0)
+        payload = box[0]
     errs = validate_db(payload)
     assert not errs, f"autotune produced an invalid DB: {errs}"
     return payload

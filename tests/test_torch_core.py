@@ -123,7 +123,8 @@ def test_import_has_no_jax():
     """repro_torch imports neither jax nor the JAX package."""
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.serve, repro_torch.tune, "
-            "repro_torch.tune.__main__; "
+            "repro_torch.tune.__main__, repro_torch.launch.drive, "
+            "repro_torch.core.distributed; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]; "

@@ -732,6 +732,26 @@ def test_residual_kernel_ring_shapes(card, n, dt):
             assert torch.equal(one[:, 0], got[:, j]), (k, j)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_residual_kernel_row_block(card, dt):
+    """A block row of A (m < n rows, what a rank of the distributed solver
+    holds): each of its rows bitwise the same row of the square launch,
+    since a row's n products are summed in an order fixed by n alone."""
+    dtype = torch.float32 if dt == "f32" else torch.float64
+    g = torch.Generator(device=card).manual_seed(7)
+    n = 1000
+    a = torch.randn((n, n), generator=g, device=card, dtype=dtype)
+    for k in (1, 16):
+        x = torch.randn((n, k), generator=g, device=card, dtype=dtype)
+        b = torch.randn((n, k), generator=g, device=card, dtype=dtype)
+        full = residual.residual_fused(a, x, b)
+        for r0, r1 in ((0, 250), (750, 1000), (3, 300)):
+            part = residual.residual_fused(a[r0:r1], x, b[r0:r1])
+            assert part.shape == (r1 - r0, k)
+            assert torch.equal(part, full[r0:r1]), (k, r0, r1)
+
+
 def _syrk_atol(c, a, scale, beta):
     """A bound on |kernel - plain| for two sums of k products in other
     orders: each is within k u sum|a_i a_j| of the exact sum (plus one

@@ -554,11 +554,28 @@ def test_scheduler_multi_column_request():
 
 
 def test_unported_serving_raises():
-    """Mesh mode still names its ROADMAP item; the tuner is ported (the
-    test keeps its name): ``tuning_db=`` is accepted and consulted."""
+    """Mesh mode and the tuner are ported (the test keeps its name): a
+    mesh-mode engine routes a size to the distributed path by the mesh
+    axis's size, the leaf and the threshold (the database's: 2048 without
+    an nshards=4 entry), ``lead()`` needs a mesh, a mesh without the axis
+    is refused; ``tuning_db=`` is accepted and consulted. The distributed
+    calls themselves run on 4 ranks in tests/test_torch_distributed.py."""
+    import types
     from repro_torch.tune import TuningDB
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        SolverEngine(mesh=object())
+    mesh = types.SimpleNamespace(mesh_dim_names=("model",),
+                                 size=lambda dim=None: 4)
+    eng = SolverEngine("bf16_f32", mesh=mesh, device="cpu")
+    assert [eng._use_dist(n) for n in (1024, 2048, 2560, 4096)] == [
+        False, True, False, True]
+    pinned = SolverEngine("bf16_f32", mesh=mesh, dist_threshold=4096,
+                          device="cpu")
+    assert [pinned._use_dist(n) for n in (2048, 4096)] == [False, True]
+    assert not _engine()._use_dist(4096)
+    with pytest.raises(ValueError, match="lead"):
+        with _engine().lead():
+            pass
+    with pytest.raises(AssertionError):
+        SolverEngine(mesh=mesh, dist_axis="data", device="cpu")
     db = TuningDB({"version": 1, "backend": "cpu", "entries": [
         {"backend": "cpu", "n": 128, "ladder": "f16_f32", "nshards": 1,
          "choice": {"engine": "tree", "max_batch": 4},

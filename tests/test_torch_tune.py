@@ -25,6 +25,7 @@ import repro.core.census as rcen
 from repro import tune as rtune
 import repro_torch.core as tc
 from repro_torch import tune as ttune
+from repro_torch.launch import drive
 from repro_torch.serve import BatchScheduler, SolveOptions, SolverEngine
 from repro_torch.tune import search as tsearch
 from repro_torch.tune.__main__ import main as tune_main
@@ -221,13 +222,8 @@ def test_interp_crossover_and_refit_match_reference(seed):
 # ---------------------------------------------------------------------------
 # the search
 # ---------------------------------------------------------------------------
-def _fake_timer():
-    calls = [0]
-
-    def timer(fn, *args):
-        calls[0] += 1
-        return 1000.0 + 7.0 * calls[0]    # fixed, order-dependent
-    return timer
+#: tests/test_tune.py's fake timer: fixed, order-dependent
+_fake_timer = drive.counting_timer
 
 
 def _quiet(name, us, derived):
@@ -248,9 +244,35 @@ def test_autotune_payload_is_the_references():
     assert ttune.verify_consultation(ttune.TuningDB(runs[0])) == []
 
 
-def test_autotune_distributed_grid_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ttune.autotune("cpu", smoke=True, nshards=4, device="cpu")
+def test_autotune_distributed_grid_payload():
+    """autotune(nshards=4) on 4 gloo ranks under the fake timer: the
+    payload has the reference's keys (its committed cpu.json's nshards=4
+    entries; its validator passes it), and decide(n, ladder, 4) reads each
+    distributed entry back."""
+    from repro_torch.launch import launch
+    got = launch(drive.run_cases, 4,
+                 ([{"kind": "tune", "fake_timer": True, "backend": "cpu"}],
+                  "cpu"), device="cpu", timeout=300)[0][0]["payload"]
+    with open(REF_CPU_DB, encoding="utf-8") as f:
+        ref = json.load(f)
+    want = rtune.autotune("cpu", smoke=True, timer=_fake_timer(), log=_quiet,
+                          nshards=0, serving=True)
+    assert set(got) == set(want) and got["nshards_dist"] == 4
+    assert rtune.validate_db(got) == [] and ttune.validate_db(got) == []
+    dist = [e for e in got["entries"] if e["nshards"] == 4]
+    ref_dist = [e for e in ref["entries"] if e["nshards"] == 4]
+    assert [e["n"] for e in dist] == list(tsearch.SMOKE_DIST_SIZES)
+    for e in dist:
+        r = ref_dist[0]
+        assert set(e) == set(r)
+        assert set(e["choice"]) == set(r["choice"])
+        assert set(e["measurements"]) == set(r["measurements"])
+        dec = ttune.decide(e["n"], e["ladder"], 4, db=ttune.TuningDB(got))
+        assert dec.source == "exact"
+        for k, v in e["choice"].items():
+            assert getattr(dec, k) == v, (k, v)
+    assert {(c["nshards"], c["knob"]) for c in got["crossovers"]} == {
+        (1, "engine"), (4, "engine")}
 
 
 def test_timeit_is_a_median_of_calls():
