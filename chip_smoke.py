@@ -69,6 +69,22 @@ result line. Phases:
    n = 16384 factor, read in place: each tile bitwise equal to a single
    launch, a NaN tile leaving its neighbours' bits alone, timed against 64
    single launches and one batched ``solve_triangular``.
+   ``kfac_batched``: the batched entries K-FAC runs (the Pallas kernels
+   under jax.vmap) at gemma-2b's K-FAC shapes (1008 blocks of 512 at leaf
+   128, bf16_f32, at scales 1e-3 .. 1e3 a block): ``potrf_leaf`` and
+   ``tri_inv_leaf`` on the 1008 first diagonal tiles, ``panel_update`` at
+   the refactor's panels 0, 1 and 2, ``qgemm`` at the whitening's three
+   calls (level 0 bf16, level 1 f32, a leaf) for dout 256, 2048 and
+   16384; every element of every batched call bitwise the one-matrix
+   launch on it, the batch within tolerance of the batched plain version,
+   timed beside one launch's time N times and a library call on the batch
+   (``cholesky_ex``, ``solve_triangular``, ``baddbmm``). Then TreeNewton's
+   own solves on statistics far from diagonal (G G^T / 2n, condition ~35):
+   ``kfac._refactor`` of all 1008 blocks and ``kfac._whiten_group`` of
+   each dout group (both sweeps, the graft) on the card against the CPU's
+   plain path on sampled matrices, bf16_f32 and int8_f32, within
+   ``KFAC_SOLVE_TOL``, which a transposed inverse or an MN-major operand
+   read K-major exceeds.
 3. ``path``: the blocked engine's main path, ``cholesky_solve`` with 16
    right-hand sides and with one vector, at n = 16384 on the paper's
    §IV-A matrix, for the ladders pure_f32, bf16_f32, f16x3_f32 and
@@ -188,9 +204,27 @@ result line. Phases:
    on the CPU.
 9. ``cpu_agreement``: each ladder's factor on the card against the same
    port run on the CPU at n = 2048, both engines.
+10. ``train``: gemma-2b full (18 layers, d 2048, d_ff 16384, vocab 256000,
+   bf16, remat, random weights) on one batch of 2 x 2048 tokens: 4 AdamW
+   steps, then 4 TreeNewton steps from the same weights (block 512, leaf
+   128, bf16_f32, a refactor every second step); every loss finite and the
+   last below the first for each optimizer, flash launches 2 n_layers a
+   step (the forward and remat's recompute), each TreeNewton step's
+   solver launches equal to the grouped schedule (``kfac_schedule``), the
+   last factors within 4e-2 of their damped statistics (each block's
+   largest entry); step ms, tokens/s, peak GiB, one profiled step of each
+   optimizer, the refactor and each whitening group timed alone.
+   ``train_depth``: a 2-layer copy's solver launches per step equal the
+   18-layer run's. ``train_cpu_agreement``: one step of each optimizer on
+   the card against the CPU (a 2-layer, d 256, f32 config). ``train_dp``:
+   the reference's mini data-parallel trainer with the int8 error-feedback
+   all-reduce as 4 ranks sharing the card over gloo, to its bound.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.
+nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``. A
+``*_batched`` entry's launches are its kernel's launches over a stack
+(``ops.BATCHED``); the kernel's own entry counts the launches that took
+one matrix, so the entries add up to the launches.
 """
 from __future__ import annotations
 
@@ -233,6 +267,16 @@ KERNELS = {
                         "src/repro/kernels/flash.py:75"),
     "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash.cu",
                             "src/repro/kernels/flash.py:75"),
+    # the batched entries K-FAC runs (the Pallas kernels under jax.vmap):
+    # the same kernels, one launch over the batch
+    "potrf_leaf_batched": ("src/repro_torch/kernels/csrc/potrf.cu",
+                           "src/repro/kernels/potrf.py:96"),
+    "tri_inv_leaf_batched": ("src/repro_torch/kernels/csrc/tri_inv.cu",
+                             "src/repro/kernels/potrf.py:137"),
+    "panel_update_batched": ("src/repro_torch/kernels/csrc/panel.cu",
+                             "src/repro/kernels/panel.py:129"),
+    "qgemm_batched": ("src/repro_torch/kernels/csrc/qgemm.cu",
+                      "src/repro/kernels/qgemm.py:83"),
 }
 #: the launches of each entry of KERNELS: ops.LAUNCHES by name, except the
 #: two routes of flash_attention (one kernel there), which ops.FLASH_ROUTES
@@ -260,10 +304,29 @@ def route_counts() -> dict:
 
 def launch_counts() -> dict:
     """The launch counts of every entry of KERNELS since the last
-    ``ops.reset_launches()``."""
+    ``ops.reset_launches()`` (:func:`split_launches`)."""
     from repro_torch.kernels import ops
-    return {name: (flash_launches(FLASH_DTYPE[name]) if name in FLASH_DTYPE
-                   else ops.LAUNCHES[name]) for name in KERNELS}
+    return split_launches(ops.LAUNCHES, ops.BATCHED, ops.FLASH_ROUTES)
+
+
+def split_launches(launches, batched, flash_routes=None) -> dict:
+    """Launch counts by entry of KERNELS from ops' counters: a batched
+    entry has its kernel's ops.BATCHED count, and the kernel's own entry
+    the launches that took one matrix (ops.LAUNCHES less ops.BATCHED), so
+    that the entries add up to the launches; flash_attention's two routes
+    as FLASH_DTYPE says (none without ``flash_routes``)."""
+    from repro_torch.kernels import flash
+
+    def count(name):
+        if name in FLASH_DTYPE:
+            return (flash_routes[flash.route(FLASH_DTYPE[name])]
+                    if flash_routes else 0)
+        if name in BATCHED_OF:
+            return batched[BATCHED_OF[name]]
+        return launches[name] - batched.get(name, 0)
+    return {name: count(name) for name in KERNELS}
+
+
 #: the kernels each driven path must launch
 PATH_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
 TREE_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "trsm_leaf",
@@ -2672,7 +2735,7 @@ def dist_schedule(cfg, n, rank):
 def dist_phase(kind, smi):
     """The dist cases on DIST_RANKS ranks sharing the card, one line a
     case from rank 0, every gate checked here; returns the lines and the
-    launches summed over the ranks."""
+    launches summed over the ranks, by entry of KERNELS."""
     from repro_torch.core.precision import PAPER_CONFIGS
     from repro_torch.kernels import ops
     from repro_torch.launch import drive, launch
@@ -2683,6 +2746,7 @@ def dist_phase(kind, smi):
                      device="cuda", timeout=600)[0]
     wall = time.perf_counter() - t0
     launches = dict.fromkeys(ops.LAUNCHES, 0)
+    batched = dict.fromkeys(ops.BATCHED, 0)
     lines = []
     for case, res in zip(cases, results):
         line = {"phase": "dist", "case": case["kind"], "ranks": DIST_RANKS,
@@ -2690,6 +2754,8 @@ def dist_phase(kind, smi):
         for r in (res["ranks"] if isinstance(res, dict) else ()):
             for k, v in r.get("launches", {}).items():
                 launches[k] += v
+            for k, v in r.get("batched", {}).items():
+                batched[k] += v
         if case["kind"] == "gloo":
             if not res["ok"]:
                 raise AssertionError(f"dist: gloo moved a CUDA tensor "
@@ -2783,11 +2849,12 @@ def dist_phase(kind, smi):
                         "into cuda.json"})
         lines.append(line)
     lines.append({"phase": "dist_launches", "wall_s": wall,
-                  "summed_over_ranks": launches})
+                  "summed_over_ranks": launches,
+                  "batched_summed_over_ranks": batched})
     for k in DIST_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"{k} was not launched on the dist path")
-    return lines, launches
+    return lines, split_launches(launches, batched)
 
 
 def dist_serve_checks(case, res):
@@ -3259,6 +3326,686 @@ def model_cpu_agreement(arch, seed):
             "tol": 1e-4}
 
 
+# ---------------------------------------------------------------------------
+# training: K-FAC's batched kernels and the gemma-2b train step
+# ---------------------------------------------------------------------------
+#: the batched entries' ops.BATCHED names (their kernels are KERNELS')
+BATCHED_OF = {"potrf_leaf_batched": "potrf_leaf",
+              "tri_inv_leaf_batched": "tri_inv_leaf",
+              "panel_update_batched": "panel_update",
+              "qgemm_batched": "qgemm"}
+#: the solver kernels K-FAC's refactor and whitening launch
+KFAC_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update")
+#: the kernels the train phase must launch
+TRAIN_KERNELS = tuple(BATCHED_OF) + ("flash_attention",)
+#: the train phase's batch: B sequences of S tokens of gemma-2b
+TRAIN_B, TRAIN_S = 2, 2048
+
+
+def kfac_blocks(cfg, block):
+    """{dout: number of (block x block) statistics} of the dense model's
+    eligible matrices (kfac.ELIGIBLE) at ``cfg``'s widths, from its shapes
+    alone: the whitening's batches; their sum is the refactor's."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+    shapes = [(d, hq), (d, hkv), (d, hkv), (hq, d), (d, cfg.d_ff),
+              (d, cfg.d_ff), (cfg.d_ff, d)]
+    out = {}
+    for din, dout in shapes:
+        if din % block == 0:
+            out[dout] = out.get(dout, 0) + cfg.n_layers * din // block
+    return out
+
+
+def tree_left_schedule(n, cfg):
+    """(tri_inv_leaf, qgemm) launches of one batched tree_trsm_left sweep
+    of order n: a batched tri_inv and qgemm a leaf, one qgemm a node."""
+    if n <= cfg.leaf:
+        return 1, 1
+    a = tree_left_schedule(cfg.split(n), cfg)
+    b = tree_left_schedule(n - cfg.split(n), cfg)
+    return a[0] + b[0], a[1] + b[1] + 1
+
+
+def kfac_schedule(tn, ngroups, refactor):
+    """The solver launches of one TreeNewton step: per whitening group two
+    sweeps (refine_sweeps 0); with a refactor, T potrf_leaf, T - 1
+    tri_inv_leaf and T - 1 panel_update (T = block / leaf), one batch for
+    every block."""
+    ti, qg = tree_left_schedule(tn.block, tn.precision)
+    T = tn.block // tn.precision.leaf
+    return {"potrf_leaf": T if refactor else 0,
+            "tri_inv_leaf": 2 * ti * ngroups + (T - 1 if refactor else 0),
+            "qgemm": 2 * qg * ngroups,
+            "panel_update": T - 1 if refactor else 0}
+
+
+def _blocks_err(what, got, want, rel):
+    """max over the blocks of a stack of max|got - want| / max|want|
+    (each block against its own scale); raise above ``rel``."""
+    g = got.double().flatten(1)
+    w = want.double().flatten(1)
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        raise AssertionError(f"{what}: NaN pattern differs")
+    err = float(((g - w).abs().nan_to_num(0.0).amax(1)
+                 / w.abs().nan_to_num(0.0).amax(1).clamp_min(1e-30)).max())
+    if err > rel:
+        raise AssertionError(f"{what}: {err:g} of a block's largest entry, "
+                             f"over {rel:g}")
+    return err
+
+
+def _each_bitwise(what, got, one):
+    """Element i of a batched result bitwise ``one(i)``, for every i."""
+    for i in range(got.shape[0]):
+        _bitwise(f"{what} element {i}", got[i], one(i))
+    return True
+
+
+def timed_once(fn):
+    """(fn(), its device ms by CUDA events around the one call)."""
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    res = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(stop)
+
+
+def _kfac_stack(gen, N, n):
+    """N SPD blocks of order n, as K-FAC's damped statistics are: the
+    paper's matrix (symmetric uniform(-1, 1), +n on the diagonal) times a
+    scale per block from 1e-3 to 1e3, so that a scale shared across the
+    batch would show."""
+    a = torch.rand((N, n, n), generator=gen, device="cuda") * 2 - 1
+    a = (a + a.transpose(1, 2)) / 2
+    a.diagonal(dim1=1, dim2=2).add_(n)
+    e = torch.rand((N, 1, 1), generator=gen, device="cuda") * 6 - 3
+    return a * 10.0 ** e
+
+
+_KFAC_TIMING = ("ms: CUDA events around 5 batched launches; single_ms_x_n: "
+                "one launch's events mean (20 launches) times N")
+
+
+def kernel_kfac_batched(rates, gen):
+    """The batched entries at K-FAC's shapes on gemma-2b (N = 1008 blocks
+    of 512, leaf 128, bf16_f32; the whitening's groups by dout): each
+    element bitwise the one-matrix launch on it, within tolerance of the
+    batched plain version, timed beside one launch's time N times, the
+    plain version and a library call on the batch."""
+    from repro_torch import configs
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.precision import PAPER_CONFIGS
+    from repro_torch.kernels import panel, potrf, qgemm, ref
+    cfg = PAPER_CONFIGS["bf16_f32"]
+    b, n = 128, 512
+    cfg = dataclasses.replace(cfg, leaf=b)
+    groups = kfac_blocks(configs.get_config("gemma-2b"), n)
+    N = sum(groups.values())
+    a = _kfac_stack(gen, N, n)
+    out, checks = {}, []
+
+    # potrf_leaf: the refactor's first diagonal tiles
+    t = a[:, :b, :b].contiguous()
+    got = potrf.potrf_leaf_batched(t)
+    _each_bitwise("potrf_leaf_batched", got, lambda i: potrf.potrf_leaf(t[i]))
+    want, plain_ms = timed_once(lambda: ref.potrf_batched_ref(t))
+    err = _blocks_err("potrf_leaf_batched", got, want, 1e-5)
+    bound, by = bound_ms(N * b ** 3 / 3, N * leaf_bytes(b, 4), "f32", rates)
+    out["potrf_leaf_batched"] = {
+        "shape": [N, b, b], "max_abs_err": err,
+        "tol": "1e-5 of each block's largest entry", "bitwise_each": True,
+        "ms": cuda_ms(lambda: potrf.potrf_leaf_batched(t), reps=5),
+        "single_ms_x_n": cuda_ms(lambda: potrf.potrf_leaf(t[0])) * N,
+        "plain_ms": plain_ms,
+        "library_ms": cuda_ms(lambda: torch.linalg.cholesky_ex(t), reps=5),
+        "library": "torch.linalg.cholesky_ex on the (N, b, b) batch",
+        "bound_ms": bound, "bound_by": by}
+    # tri_inv_leaf on those factors
+    l = got
+    inv = potrf.tri_inv_leaf_batched(l)
+    _each_bitwise("tri_inv_leaf_batched", inv,
+                  lambda i: potrf.tri_inv_leaf(l[i]))
+    want, plain_ms = timed_once(lambda: ref.tri_inv_batched_ref(l))
+    err = _blocks_err("tri_inv_leaf_batched", inv, want, 1e-5)
+    eye = torch.eye(b, device="cuda").expand(N, b, b)
+    out["tri_inv_leaf_batched"] = {
+        "shape": [N, b, b], "max_abs_err": err,
+        "tol": "1e-5 of each block's largest entry", "bitwise_each": True,
+        "ms": cuda_ms(lambda: potrf.tri_inv_leaf_batched(l), reps=5),
+        "single_ms_x_n": cuda_ms(lambda: potrf.tri_inv_leaf(l[0])) * N,
+        "plain_ms": plain_ms,
+        "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(
+            l, eye, upper=False), reps=5),
+        "library": "torch.linalg.solve_triangular(l, I) on the batch",
+        "bound_ms": bound, "bound_by": by}
+    del t
+
+    # panel_update: panels 0, 1, 2 of the refactor (m = 384, 256, 128)
+    plan = build_plan(n, cfg)
+    linv = inv.clone()
+    panels = []
+    for p in range(n // b - 1):
+        r0, r1 = p * b, (p + 1) * b
+        meta = plan.panel_meta(p)
+        kw = dict(store_names=meta.store_names,
+                  store_quants=meta.store_quants,
+                  pair_names=meta.pair_names, pair_quants=meta.pair_quants)
+        m = n - r1
+        w = a.clone()
+        panel.panel_update(linv, w[:, r1:, r0:r1], w[:, r1:, r1:], **kw)
+        line = {"panel": p, "shape": [N, m, b]}
+        if p == 0:
+            def one(i):
+                wi = a[i].clone()
+                panel.panel_update(linv[i], wi[r1:, r0:r1], wi[r1:, r1:],
+                                   **kw)
+                return wi
+            _each_bitwise("panel_update_batched", w, one)
+            (want_l, want_c), plain_ms = timed_once(
+                lambda: ref.panel_update_batched_ref(
+                    linv, a[:, r1:, r0:r1], a[:, r1:, r1:], **kw))
+            unit = GRID["bf16"]
+            err = max(_blocks_err("panel_update_batched l21",
+                                  w[:, r1:, r0:r1], want_l, unit),
+                      _blocks_err("panel_update_batched c", w[:, r1:, r1:],
+                                  want_c, unit))
+            line.update(max_abs_err=err, bitwise_each=True,
+                        tol=f"{unit:g} of each block's largest entry",
+                        plain_ms=plain_ms)
+            del want_l, want_c
+        w2 = a.clone()
+        line["ms"] = cuda_ms(lambda: panel.panel_update(
+            linv, w2[:, r1:, r0:r1], w2[:, r1:, r1:], **kw), reps=5,
+            warmup=1)
+        w3 = a[0].clone()
+        line["single_ms_x_n"] = cuda_ms(lambda: panel.panel_update(
+            linv[0], w3[r1:, r0:r1], w3[r1:, r1:], **kw)) * N
+        l21 = w[:, r1:, r0:r1].contiguous()
+        c = w[:, r1:, r1:].contiguous()
+        line["library_ms"] = cuda_ms(lambda: torch.baddbmm(
+            c, l21, l21.transpose(1, 2), alpha=-1.0), reps=5)
+        single = _panel_bound(meta, m, b, 4, rates)
+        line.update(bound_ms=single["bound_ms"] * N,
+                    bound_by=single["bound_by"])
+        panels.append(line)
+        del w, w2, l21, c
+    head = panels[0]
+    out["panel_update_batched"] = {
+        **head, "ladder": "bf16_f32", "panels": panels,
+        "library": "torch.baddbmm(c, l21, l21^T, alpha=-1), f32, on the "
+                   "batch: the trailing update alone, no rounding"}
+    del linv, inv, l
+    torch.cuda.empty_cache()
+
+    # qgemm: the whitening's three calls per group (level 0 bf16 on the
+    # tensor cores, level 1 f32, a leaf's product with its inverse)
+    shapes = []
+    for dout, nb in sorted(groups.items()):
+        x = torch.randn((nb, n, dout), generator=gen, device="cuda")
+        lw = a[:nb]
+        s = -torch.ones(nb, device="cuda")
+        calls = {
+            "level0_bf16": (lw[:, 256:, :256].to(torch.bfloat16),
+                            x[:, :256].to(torch.bfloat16), s, x[:, 256:],
+                            1.0, "bf16"),
+            "level1_f32": (lw[:, 128:256, :128], x[:, :128], -1.0,
+                           x[:, 128:256], 1.0, "f32"),
+            "leaf_f32": (lw[:, :128, :128].contiguous(), x[:, :128], 1.0,
+                         None, 0.0, "f32")}
+        for name, (qa, qb, sc, qc, beta, kind) in calls.items():
+            got = qgemm.qgemm(qa, qb, sc, c=qc, beta=beta)
+            sf = [float(sc[i]) if torch.is_tensor(sc) else sc
+                  for i in range(nb)]
+            _each_bitwise(f"qgemm_batched {name} dout={dout}", got,
+                          lambda i: qgemm.qgemm(qa[i], qb[i], sf[i],
+                                                c=None if qc is None
+                                                else qc[i], beta=beta))
+            # the plain version (one column at a time) on every product of
+            # the smallest group, on the first and last of the others
+            full = dout == min(groups)
+            sample = list(range(nb)) if full else [0, nb - 1]
+            want, plain_ms = timed_once(lambda: ref.qgemm_batched_ref(
+                qa[sample], qb[sample],
+                scale=sc[sample] if torch.is_tensor(sc) else sc,
+                c=None if qc is None else qc[sample], beta=beta))
+            err = 0.0
+            for j, i in enumerate(sample):
+                atol = _qgemm_gamma(qa[i], qb[i].T, sf[i],
+                                    None if qc is None else qc[i], beta,
+                                    qa.shape[-1])
+                err = max(err, check_close(
+                    f"qgemm_batched {name} dout={dout} element {i}",
+                    got[i], want[j], 0, atol))
+            M, K = qa.shape[-2:]
+            nbytes = (qa.numel() * qa.element_size()
+                      + qb.numel() * qb.element_size()
+                      + nb * M * dout * 4 * (2 if qc is not None else 1))
+            bound, by = bound_ms(2.0 * nb * M * K * dout, nbytes, kind,
+                                 rates)
+            cq = qc if qc is not None else torch.zeros(
+                (nb, M, dout), device="cuda")
+            if kind == "bf16":
+                try:
+                    lib = (lambda: torch.baddbmm(cq, qa, qb, alpha=-1.0,
+                                                 out_dtype=torch.float32),
+                           "torch.baddbmm(c, a, b, alpha=-1, "
+                           "out_dtype=f32)")
+                    lib[0]()
+                except (TypeError, RuntimeError):
+                    c16 = cq.to(torch.bfloat16)
+                    lib = (lambda: torch.baddbmm(c16, qa, qb, alpha=-1.0),
+                           "torch.baddbmm in bf16: output in bf16, speed "
+                           "only")
+            else:
+                lib = (lambda: torch.baddbmm(cq, qa, qb, alpha=-1.0),
+                       "torch.baddbmm(c, a, b, alpha=-1), f32")
+            row = {"call": name, "dout": dout, "shape": [nb, M, K, dout],
+                   "max_abs_err": err, "bitwise_each": True,
+                   "tol": "data-scaled gamma atol (_qgemm_gamma), on "
+                          + ("every element" if full else
+                             f"elements {sample}"),
+                   "ms": cuda_ms(lambda: qgemm.qgemm(
+                       qa, qb, sc, c=qc, beta=beta), reps=5),
+                   "single_ms_x_n": cuda_ms(lambda: qgemm.qgemm(
+                       qa[0], qb[0], sf[0],
+                       c=None if qc is None else qc[0], beta=beta)) * nb,
+                   ("plain_ms" if full else "plain_ms_2_of_n"): plain_ms,
+                   "library_ms": cuda_ms(lib[0], reps=5), "library": lib[1],
+                   "bound_ms": bound, "bound_by": by}
+            shapes.append(row)
+        del x, calls
+        torch.cuda.empty_cache()
+    head = next(r for r in shapes if r["call"] == "level0_bf16"
+                and r["dout"] == min(groups))
+    out["qgemm_batched"] = {**head, "shapes": shapes}
+    for name, line in out.items():
+        checks.append({"entry": name, "max_abs_err": line["max_abs_err"],
+                       "bitwise_each": True})
+    del a
+    torch.cuda.empty_cache()
+    solves = kfac_solves_agreement(gen, groups, n, b)
+    checks.append({"entry": "treenewton_solves", "max_err": {
+        k: v["max_err"] for k, v in solves["ladders"].items()}})
+    return checks, {"entries": out, "timing": _KFAC_TIMING, "groups": groups,
+                    "n_blocks": N, "treenewton_solves": solves}
+
+
+def _kfac_stats(gen, N, n):
+    """N statistics of order n as K-FAC accumulates them, G G^T / k with
+    G (n x k, k = 2n) standard normal (condition ~35 once damped, far from
+    diagonal: L^-1 and L^-T differ as much as they can), times a scale per
+    block from 1e-3 to 1e3."""
+    g = torch.randn((N, n, 2 * n), generator=gen, device="cuda")
+    a = torch.bmm(g, g.mT) / (2 * n)
+    del g
+    e = torch.rand((N, 1, 1), generator=gen, device="cuda") * 6 - 3
+    return a * 10.0 ** e
+
+
+#: card vs CPU bounds of TreeNewton's solves, relative to each block's
+#: largest entry. On _kfac_stats' statistics the CPU's plain path moves
+#: by 4.3e-4 (factors) and 4e-3 (bf16) / 1e-2 (int8) (whitened gradient)
+#: when its inputs move by 1e-7; a transposed L11^-1 in the panels moves
+#: the factors by 6.4e-2, a transposed leaf inverse the whitened gradient
+#: by 0.34-0.36 and an MN-major A read K-major by 0.97 (CPU runs of these
+#: mutations on 4 such blocks of 512).
+KFAC_SOLVE_TOL = {"refactor": 1e-2, "whiten": 4e-2}
+#: blocks a matrix in the solves check (din 2048: wq, wo, w_in, w_gate)
+_KFAC_MATRIX_BLOCKS = 4
+
+
+def kfac_solves_agreement(gen, groups, n, leaf):
+    """TreeNewton's solves at K-FAC's shapes on gemma-2b, on statistics far
+    from diagonal: the refactor of all N blocks and each whitening group
+    (both sweeps and the graft, matrices of 4 blocks) on the card, against
+    the CPU's plain path on sampled matrices (the first and last of a
+    group; the last alone at dout 16384, whose plain sweeps take the
+    longest); whitening from the card's factors on both, under the
+    bf16_f32 ladder (the main path's) and int8_f32 (its quantized back
+    sweep: L21^T an MN-major int8 operand; dout 256 and 2048)."""
+    from repro_torch.core.precision import PAPER_CONFIGS
+    from repro_torch.optim import kfac
+    N = sum(groups.values())
+    a = _kfac_stats(gen, N, n)
+    ladders = {}
+    t0 = time.perf_counter()
+    l = None
+    for ladder in ("bf16_f32", "int8_f32"):
+        tn = kfac.TreeNewtonConfig(block=n, precision=dataclasses.replace(
+            PAPER_CONFIGS[ladder], leaf=leaf))
+        row = {"whiten": []}
+        if l is None:
+            l = kfac._refactor(a, tn)
+            sample = [0, N // 2, N - 1]
+            want = kfac._refactor(a[sample].cpu(), tn)
+            row["refactor"] = {"blocks": sample, "err": _blocks_err(
+                f"refactor {ladder} card vs CPU", l[sample].cpu(), want,
+                KFAC_SOLVE_TOL["refactor"])}
+        off = 0
+        for dout, nb in sorted(groups.items()):
+            nm = nb // _KFAC_MATRIX_BLOCKS
+            if ladder == "int8_f32" and dout > 2048:
+                off += nb
+                continue
+            g = torch.randn((nm, _KFAC_MATRIX_BLOCKS * n, dout),
+                            generator=gen, device="cuda")
+            blk = [slice(off + i * _KFAC_MATRIX_BLOCKS,
+                         off + (i + 1) * _KFAC_MATRIX_BLOCKS)
+                   for i in range(nm)]
+            items = [(g[i], l[blk[i]], a[blk[i]]) for i in range(nm)]
+            got = kfac._whiten_group(items, tn)
+            err = 0.0
+            picks = [nm - 1] if dout > 2048 else [0, nm - 1]
+            for i in picks:
+                want = kfac._whiten_group([tuple(t.cpu() for t in items[i])],
+                                          tn)[0]
+                err = max(err, _blocks_err(
+                    f"whiten {ladder} dout={dout} matrix {i} card vs CPU",
+                    got[i].cpu().reshape(-1, n, dout),
+                    want.reshape(-1, n, dout), KFAC_SOLVE_TOL["whiten"]))
+            row["whiten"].append({"dout": dout, "matrices": nm,
+                                  "checked": picks, "err": err})
+            off += nb
+            del g, items, got
+        row["max_err"] = max([r["err"] for r in row["whiten"]]
+                             + ([row["refactor"]["err"]]
+                                if "refactor" in row else []))
+        ladders[ladder] = row
+    del a, l
+    torch.cuda.empty_cache()
+    return {"n_blocks": N, "block": n, "leaf": leaf,
+            "stats": "G G^T / 2n, G (n x 2n) normal, x 10^U(-3, 3) a block",
+            "tol": KFAC_SOLVE_TOL, "ladders": ladders,
+            "seconds": time.perf_counter() - t0}
+
+
+def _train_batch(cfg, B, S, seed):
+    """B random sequences of S + 1 tokens on the card: tokens and the
+    next-token labels."""
+    toks = _prompt(cfg, B, S + 1, seed)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _kfac_launches(before):
+    from repro_torch.kernels import ops
+    return {k: ops.LAUNCHES[k] - before[k] for k in KFAC_KERNELS}
+
+
+def _train_steps(step_fn, state, batch, steps, label):
+    """``steps`` steps on one batch: each step's loss, device ms (CUDA
+    events around the step), solver and flash launches; every loss must
+    be finite."""
+    from repro_torch.kernels import ops
+    rows = []
+    for _ in range(steps):
+        before = dict(ops.LAUNCHES)
+        flash0 = ops.LAUNCHES["flash_attention"]
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step_fn(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        loss = float(m["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label}: loss {loss} at step "
+                                 f"{state['step']}")
+        rows.append({"step": state["step"], "loss": loss,
+                     "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                     "step_ms": start.elapsed_time(stop), "wall_ms": wall,
+                     "solver_launches": _kfac_launches(before),
+                     "flash_launches": ops.LAUNCHES["flash_attention"]
+                     - flash0})
+    return state, rows
+
+
+def _train_configs(block=512):
+    """The train phase's optimizers: AdamW at lr 5e-4 (warmup 1, so that
+    4 steps on one batch move the loss) and TreeNewton with that AdamW,
+    the default bf16_f32 ladder at leaf 128, block 512, a refactor every
+    second step."""
+    from repro_torch.optim import AdamWConfig, TreeNewtonConfig
+    from repro_torch.train import TrainConfig
+    adam = AdamWConfig(lr=5e-4, warmup=1, total_steps=100)
+    tn = TreeNewtonConfig(adam=adam, block=block, factor_every=2)
+    return (TrainConfig(optimizer="adamw", adam=adam),
+            TrainConfig(optimizer="tree_newton", adam=adam, tree_newton=tn))
+
+
+def _check_schedule(label, rows, tn, ngroups):
+    """Each TreeNewton step's solver launches against kfac_schedule."""
+    for r in rows:
+        want = kfac_schedule(tn, ngroups, r["step"] % tn.factor_every == 0)
+        if r["solver_launches"] != want:
+            raise AssertionError(f"{label}: step {r['step']} launched "
+                                 f"{r['solver_launches']}, the grouped "
+                                 f"schedule is {want}")
+
+
+def train_phase(kind, smi, B=TRAIN_B, S=TRAIN_S):
+    """gemma-2b full() (18 layers, d 2048, d_ff 16384, vocab 256000, bf16,
+    random weights from a seed) on one batch of B x S tokens: 4 AdamW
+    steps, then 4 TreeNewton steps from the same initial weights (a
+    refactor at steps 2 and 4); each loss finite and the last below the first for each
+    optimizer; every TreeNewton step's solver launches equal to the
+    grouped schedule, and equal to a 2-layer copy's; the last factors
+    reconstruct their damped statistics within the bf16 ladder's 4e-2 (a
+    block's largest entry); one step of each optimizer profiled; the
+    refactor and each whitening group timed alone."""
+    from repro_torch import configs
+    from repro_torch.optim import kfac
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_state, make_train_step
+    cfg = configs.get_config("gemma-2b")
+    t_adam, t_tn = _train_configs()
+    tn = t_tn.tree_newton
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, t_adam, seed=950, device="cuda")
+    batch = _train_batch(cfg, B, S, 951)
+    params_gib = sum(p.numel() * p.element_size()
+                     for _, p in leaves(state["params"])) / 2 ** 30
+    line = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "dtype": cfg.param_dtype, "remat": cfg.remat, "batch": B,
+            "seq": S, "param_gib": params_gib, "device": kind,
+            "nvidia_smi": smi, "timing": "step_ms: CUDA events around one "
+            "step (forward, backward, optimizer); wall_ms: host clock to a "
+            "synchronize"}
+    step = make_train_step(cfg, t_adam)
+    state, rows = _train_steps(step, state, batch, 4, "train adamw")
+    line["adamw"] = {"steps": rows, "peak_gib":
+                     torch.cuda.max_memory_allocated() / 2 ** 30}
+    line["adamw"]["profiled"] = _profiled(lambda: step(state, batch))
+    # TreeNewton from the same initial weights
+    del state
+    torch.cuda.empty_cache()
+    state = init_state(cfg, t_tn, seed=950, device="cuda")
+    groups = kfac.whiten_groups(state["params"], tn)
+    nblocks = {d: sum(state["opt"]["stats"][p].shape[0] for p in paths)
+               for d, paths in groups.items()}
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, t_tn)
+    state, rows = _train_steps(step, state, batch, 4, "train tree_newton")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _check_schedule("train tree_newton", rows, tn, len(groups))
+    for name, opt_rows in (("adamw", line["adamw"]["steps"]),
+                           ("tree_newton", rows)):
+        if not opt_rows[-1]["loss"] < opt_rows[0]["loss"]:
+            raise AssertionError(f"train {name}: the loss did not fall: "
+                                 f"{[r['loss'] for r in opt_rows]}")
+    for r in line["adamw"]["steps"] + rows:
+        if r["flash_launches"] != 2 * cfg.n_layers:
+            raise AssertionError(f"train: {r['flash_launches']} flash "
+                                 f"launches a step, not 2 n_layers (the "
+                                 f"forward and remat's recompute)")
+    # the factors of step 4 against the damped statistics they factor
+    opt = state["opt"]
+    rec_err = 0.0
+    for p, l in opt["factors"].items():
+        d = kfac._damped(opt["stats"][p], tn)
+        rec = torch.matmul(l, l.transpose(-1, -2))
+        rec_err = max(rec_err, float(((rec - d).abs().amax((-2, -1))
+                                      / d.abs().amax((-2, -1))).max()))
+    if not rec_err < 4e-2:
+        raise AssertionError(f"train: factors reconstruct the damped stats "
+                             f"only to {rec_err:g}")
+    line["tree_newton"] = {
+        "steps": rows, "peak_gib": peak, "blocks_by_dout": nblocks,
+        "refactor_blocks": sum(nblocks.values()),
+        "factor_reconstruction_rel": rec_err,
+        "schedule": {"refactor_step": kfac_schedule(tn, len(groups), True),
+                     "whiten_only_step": kfac_schedule(tn, len(groups),
+                                                       False)}}
+    # the optimizer's own parts, each timed alone by CUDA events
+    stats = opt["stats"]
+    flat = torch.cat([stats[p].reshape(-1, tn.block, tn.block)
+                      for p in stats])
+    _, refactor_ms = timed_once(lambda: kfac._refactor(flat, tn))
+    del flat
+    grads = {p: torch.randn(w.shape, device="cuda", dtype=w.dtype)
+             for p, w in leaves(state["params"]) if p in stats}
+    whiten_ms = {}
+    for dout, paths in groups.items():
+        items = [(grads[p], opt["factors"][p], stats[p]) for p in paths]
+        _, whiten_ms[dout] = timed_once(
+            lambda: kfac._whiten_group(items, tn))
+    del grads
+    line["tree_newton"]["optimizer_ms"] = {
+        "refactor": refactor_ms, "whiten_by_dout": whiten_ms,
+        "whiten_total": sum(whiten_ms.values())}
+    line["tree_newton"]["profiled"] = _profiled(lambda: step(state, batch))
+    for part in (line["adamw"], line["tree_newton"]):
+        ms = statistics.median(r["step_ms"] for r in part["steps"])
+        part["step_ms_median"] = ms
+        part["tokens_per_s"] = B * S / ms * 1e3
+    del state, step, opt, stats
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_depth_check(line):
+    """A 2-layer copy of gemma-2b (full width) takes two TreeNewton steps
+    (the second with a refactor): its solver launches per step must equal
+    the 18-layer run's steps 1 and 2, since the batches do not grow with
+    the depth."""
+    from repro_torch import configs
+    from repro_torch.train import init_state, make_train_step
+    cfg = configs.get_config("gemma-2b").replace(n_layers=2)
+    _, t_tn = _train_configs()
+    torch.cuda.empty_cache()
+    state = init_state(cfg, t_tn, seed=960, device="cuda")
+    batch = _train_batch(cfg, 1, 512, 961)
+    state, rows = _train_steps(make_train_step(cfg, t_tn), state, batch, 2,
+                               "train 2 layers")
+    deep = line["tree_newton"]["steps"][:2]
+    got = [r["solver_launches"] for r in rows]
+    want = [r["solver_launches"] for r in deep]
+    if got != want:
+        raise AssertionError(f"train: 2 layers launched {got}, 18 layers "
+                             f"{want}")
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "train_depth", "n_layers": 2, "batch": 1, "seq": 512,
+            "solver_launches_per_step": got,
+            "equal_to_18_layers": True}
+
+
+def _step_close(what, got_p, want_p, m_ref, adam, lr):
+    """Parameters after one step on two devices: where the first moment
+    says |g| > 100 eps, within 2e-6 + 1e-3 lr (AdamW's first step is flat
+    in g there); elsewhere within the step's own size, lr (1 + wd |p|)
+    (tests/test_torch_train.py)."""
+    from repro_torch.optim.adamw import leaves
+    worst = 0.0
+    gm = dict(leaves(m_ref))
+    for (path, g), (_, w) in zip(leaves(got_p), leaves(want_p)):
+        err = (g.float().cpu() - w.float()).abs()
+        flat = gm[path].float().abs() / (1 - adam.b1) > 100 * adam.eps
+        own = lr * (1 + adam.weight_decay * w.float().abs())
+        if bool((err[flat] > 2e-6 + 1e-3 * lr).any()) or bool(
+                (err[~flat] > 2e-6 + own[~flat]).any()):
+            raise AssertionError(f"{what}: {path} differs by "
+                                 f"{float(err.max()):g}")
+        worst = max(worst, float(err[flat].max()) if flat.any() else 0.0)
+    return worst
+
+
+def train_cpu_agreement(seed=970):
+    """One AdamW step and one TreeNewton step with a refactor (block 256,
+    leaf 128: two panels, so every batched kernel runs) of a 2-layer
+    dense config (d_model 256, d_ff 512, f32) on the card and on the CPU
+    from the same weights and batch: the losses within 1e-5 relative and
+    the parameters within _step_close's bounds."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.optim import AdamWConfig, TreeNewtonConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.step import init_opt
+    cfg = ModelConfig(name="train-agree", family="dense", n_layers=2,
+                      d_model=256, d_ff=512, vocab=256, n_heads=4, n_kv=2,
+                      head_dim=64, mlp="geglu", max_seq=64)
+    adam = AdamWConfig(lr=1e-2, warmup=2, total_steps=100)
+    tn = TreeNewtonConfig(adam=adam, block=256, factor_every=1)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = []
+    for tcfg in (TrainConfig(optimizer="adamw", adam=adam),
+                 TrainConfig(optimizer="tree_newton", adam=adam,
+                             tree_newton=tn)):
+        base = T.init_params(cfg, seed=seed, device="cpu")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda _, p: p.to(dev, copy=True), base)
+            state = {"params": params, "opt": init_opt(params, tcfg),
+                     "step": 0}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            state, m = make_train_step(cfg, tcfg)(state, b)
+            out[dev] = (state, {k: float(v) for k, v in m.items()})
+        (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+        if abs(gm["loss"] - cm["loss"]) > 1e-5 * abs(cm["loss"]):
+            raise AssertionError(f"train card vs CPU ({tcfg.optimizer}): "
+                                 f"loss {gm['loss']} vs {cm['loss']}")
+        adam_state = cs["opt"] if tcfg.optimizer == "adamw" else \
+            cs["opt"]["adam"]
+        err = _step_close(f"train card vs CPU ({tcfg.optimizer})",
+                          gs["params"], cs["params"], adam_state["m"],
+                          adam, cm["lr"])
+        runs.append({"optimizer": tcfg.optimizer, "loss_card": gm["loss"],
+                     "loss_cpu": cm["loss"], "param_max_abs_err": err,
+                     "lr": cm["lr"]})
+    return {"phase": "train_cpu_agreement", "config": "2 layers, d_model "
+            "256, d_ff 512, f32; TreeNewton block 256, leaf 128, refactor "
+            "every step", "runs": runs,
+            "tol": "where |g| > 100 eps: 2e-6 + 1e-3 lr; elsewhere the "
+                   "step's own size (tests/test_torch_train.py)"}
+
+
+def train_dp_phase(kind, smi):
+    """The reference's mini data-parallel trainer
+    (tests/test_train.py:122-153) with the int8 error-feedback
+    all-reduce, as 4 ranks sharing the card over gloo
+    (repro_torch.launch): it must converge within that test's bound,
+    max|w - w_true| < 5e-2."""
+    from repro_torch.launch import drive, launch
+    t0 = time.perf_counter()
+    res = launch(drive.run_cases, DIST_RANKS, ([{"kind": "train_dp"}],
+                                               "cuda"),
+                 device="cuda", timeout=600)[0][0]
+    if not res["err"] < 5e-2:
+        raise AssertionError(f"train_dp: max|w - w_true| = {res['err']}")
+    return {"phase": "train_dp", "ranks": DIST_RANKS, "device": kind,
+            "nvidia_smi": smi, "note": DIST_NOTE, **res,
+            "bound": "max|w - w_true| < 5e-2 (tests/test_train.py:152)",
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3293,7 +4040,9 @@ def main() -> int:
                      ("syrk_leaf", lambda: kernel_syrk_leaf(rates, gen)),
                      ("syrk_packed", lambda: kernel_syrk_packed(rates, gen,
                                                                 N_MAIN)),
-                     ("flash_attention", lambda: kernel_flash(rates, gen))):
+                     ("flash_attention", lambda: kernel_flash(rates, gen)),
+                     ("kfac_batched", lambda: kernel_kfac_batched(rates,
+                                                                  gen))):
         t0 = time.perf_counter()
         checks, timing = fn()
         torch.cuda.synchronize()
@@ -3301,6 +4050,7 @@ def main() -> int:
         emit({"phase": "kernel", "name": name, **timing,
               "checks": checks, "phase_s": time.perf_counter() - t0})
     results["flash_attention_f32"] = results["flash_attention"]["f32"]
+    results.update(results.pop("kfac_batched")["entries"])
     emit(factor_probe("after_kernel_phases", N_MAIN, 850))
 
     # each driven path runs with fresh counts and must launch its kernels;
@@ -3411,6 +4161,19 @@ def main() -> int:
              for engine in ("blocked", "tree")
              for i, name in enumerate(ladders + ("f32x3_f64",))]
     emit({"phase": "cpu_agreement", "runs": agree})
+
+    # training: gemma-2b at full width and depth, AdamW then TreeNewton
+    train_line = {}
+
+    def run_train():
+        t0 = time.perf_counter()
+        train_line.update(train_phase(kind, smi))
+        train_line["phase_s"] = time.perf_counter() - t0
+        return train_line
+    drive("train", TRAIN_KERNELS,
+          [run_train, lambda: train_depth_check(train_line),
+           train_cpu_agreement])
+    emit(train_dp_phase(kind, smi))
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

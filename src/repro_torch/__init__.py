@@ -11,9 +11,12 @@ database (``repro_torch.tune``, ``engine="auto"``), iterative refinement
 (``refine_solve``) and solve serving (``repro_torch.serve``, with its
 mesh mode), the distributed factor and solve on ``torch.distributed``
 (``repro_torch.core.distributed``, ranks started by
-``repro_torch.launch``), and the model zoo's dense family (``repro_torch.configs``, ``repro_torch.models``)
-served by ``prefill_step``, ``serve_step`` and ``generate``, with nine
-kernels; the rest follows (ROADMAP.md, queue A).
+``repro_torch.launch``), the model zoo's dense family
+(``repro_torch.configs``, ``repro_torch.models``) served by
+``prefill_step``, ``serve_step`` and ``generate`` and trained
+(``repro_torch.train``, with AdamW and TreeNewton from
+``repro_torch.optim``), with nine kernels and batched entries of four of
+them; the rest follows (ROADMAP.md, queue A).
 """
 from repro_torch.core import (PAPER_CONFIGS, PrecisionConfig, RefineConfig,
                               RefineResult, TreeSPD, build_plan, cholesky,

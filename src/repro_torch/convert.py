@@ -17,7 +17,17 @@ arrays, through :func:`treespd_to_numpy`.
 For the model zoo the state is the parameter pytree: the reference's
 (nested dicts of arrays, the layers stacked ``[L, ...]``) becomes the
 port's (the same dicts, the layers a list) through
-:func:`model_params_from_reference`, bit for bit.
+:func:`model_params_from_reference`, bit for bit, and back through
+:func:`model_params_to_numpy`.
+
+For training it is also the optimizer's state:
+:func:`opt_state_from_reference` takes the reference's AdamW state
+(moments shaped as the parameters, a count) or TreeNewton state (AdamW's,
+and the statistics and factors of each eligible matrix, stacked
+``(L, nb, block, block)`` for the layers) and gives the port's (moments
+per layer, statistics and factors per path ``layers/<i>/...`` as
+``(nb, block, block)``, host integer counts); :func:`opt_state_to_numpy`
+goes back, the layers stacked again.
 """
 from __future__ import annotations
 
@@ -128,7 +138,111 @@ def model_params_from_reference(params, cfg, device="cuda"):
     return out
 
 
+def _ref_paths(tree, prefix=""):
+    """``{path: leaf}`` of a reference pytree of nested dicts, ``None``
+    leaves skipped."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_ref_paths(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {} if tree is None else {prefix: tree}
+
+
+def _unstack_paths(flat, n_layers, device):
+    """Reference paths -> the port's: ``layers/x`` (stacked) becomes
+    ``layers/<i>/x`` for each layer."""
+    out = {}
+    for path, arr in flat.items():
+        t = _tensor(arr, device)
+        if path.startswith("layers/"):
+            for i in range(n_layers):
+                out[f"layers/{i}/{path[len('layers/'):]}"] = t[i]
+        else:
+            out[path] = t
+    return out
+
+
+def _restack_paths(flat):
+    """The port's paths -> the reference's, the layers stacked again, as
+    numpy."""
+    out, layered = {}, {}
+    for path, t in flat.items():
+        parts = path.split("/")
+        if parts[0] == "layers":
+            layered.setdefault("/".join(["layers"] + parts[2:]), []).append(
+                (int(parts[1]), t))
+        else:
+            out[path] = _array(t)
+    for path, items in layered.items():
+        out[path] = _array(torch.stack([t for _, t in sorted(
+            items, key=lambda it: it[0])]))
+    return out
+
+
+def _nest(flat):
+    out: dict = {}
+    for path, arr in flat.items():
+        *keys, last = path.split("/")
+        d = out
+        for k in keys:
+            d = d.setdefault(k, {})
+        d[last] = arr
+    return out
+
+
+def model_params_to_numpy(params):
+    """The port's parameters as the reference's pytree (nested dicts of
+    numpy arrays, the layers stacked ``[L, ...]``; bf16 as
+    ``ml_dtypes.bfloat16``), bit for bit."""
+    from repro_torch.optim.adamw import leaves
+    return _nest(_restack_paths(dict(leaves(params))))
+
+
+def _adam_from_reference(st, cfg, device):
+    def tree(t):
+        return model_params_from_reference(t, cfg, device=device)
+    return {"m": tree(st["m"]), "v": tree(st["v"]),
+            "count": int(np.asarray(st["count"]))}
+
+
+def opt_state_from_reference(state, params_ref, cfg, device="cuda"):
+    """The port's optimizer state from the reference's (``adamw.init`` /
+    ``kfac.init`` or a later step of either; arrays as anything
+    ``numpy.asarray`` takes). ``params_ref`` is the reference's parameter
+    pytree, whose structure the statistics follow; ``cfg`` the model's
+    config (its ``n_layers``)."""
+    if "stats" not in state:
+        return _adam_from_reference(state, cfg, device)
+    keep = set(_ref_paths(params_ref))
+
+    def mats(tree):
+        flat = {p: a for p, a in _ref_paths(tree).items() if p in keep}
+        return {p: t.clone() for p, t in
+                _unstack_paths(flat, cfg.n_layers, device).items()}
+    return {"adam": _adam_from_reference(state["adam"], cfg, device),
+            "stats": mats(state["stats"]), "factors": mats(state["factors"]),
+            "count": int(np.asarray(state["count"]))}
+
+
+def opt_state_to_numpy(state):
+    """The port's optimizer state in the reference's layout, as numpy:
+    AdamW's moments as parameter pytrees (:func:`model_params_to_numpy`),
+    TreeNewton's statistics and factors as ``{reference path: (L, nb,
+    block, block) array}``, the counts as ints."""
+    def adam(st):
+        return {"m": model_params_to_numpy(st["m"]),
+                "v": model_params_to_numpy(st["v"]), "count": st["count"]}
+    if "stats" not in state:
+        return adam(state)
+    return {"adam": adam(state["adam"]),
+            "stats": _restack_paths(state["stats"]),
+            "factors": _restack_paths(state["factors"]),
+            "count": state["count"]}
+
+
 __all__ = ["config_from_fields", "factor_from_numpy", "factor_to_numpy",
-           "model_params_from_reference",
+           "model_params_from_reference", "model_params_to_numpy",
+           "opt_state_from_reference", "opt_state_to_numpy",
            "refine_config_from_fields", "treespd_from_reference",
            "treespd_to_numpy"]

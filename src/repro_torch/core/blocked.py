@@ -15,6 +15,12 @@ in place on it: each panel update overwrites its block column with L21
 and the trailing lower tiles with their update, and the finished factor
 is that same buffer with its upper triangle zeroed. Kernels receive
 slices of it through their leading dimension, not copies.
+
+:func:`blocked_potrf` also factors a stack (N, n, n) of matrices of one
+size, the reference's function under ``jax.vmap`` (K-FAC's refactor): the
+same schedule with one batched launch a kernel a panel (``potrf_leaf``,
+``tri_inv_leaf``, ``panel_update`` over all N), each matrix's roundings
+its own.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ from repro_torch.kernels.potrf import diag_tiles
 
 
 def _round(x, name: str, cfg: PrecisionConfig):
-    """Storage rounding at ``name`` (no-op when the config disables it)."""
+    """Storage rounding at ``name`` (no-op when the config disables it),
+    per matrix of a 3-D stack."""
     if not cfg.storage_rounding:
         return x
     return storage_round(x, name, cfg.quantize)
@@ -40,9 +47,10 @@ def blocked_potrf(a, cfg: PrecisionConfig, *, plan=None):
     tile schedule. Reads the lower triangle only; returns a new tensor L
     with a zeroed upper triangle (``a`` itself is not modified).
     ``a.shape[-1]`` must be a multiple of ``cfg.leaf``; ``plan`` overrides
-    the per-tile precision table as in the reference."""
+    the per-tile precision table as in the reference. A stack (N, n, n)
+    gives the N factors, each panel one batched launch a kernel."""
     n = a.shape[-1]
-    assert a.shape == (n, n), a.shape
+    assert a.dim() in (2, 3) and a.shape[-2:] == (n, n), a.shape
     assert n % cfg.leaf == 0, (n, cfg.leaf)
     if plan is None:
         plan = build_plan(n, cfg)
@@ -52,19 +60,20 @@ def blocked_potrf(a, cfg: PrecisionConfig, *, plan=None):
     for p in range(T):
         r0, r1 = p * b, (p + 1) * b
         name_p = plan.name(p, p)
-        diag = _round(_sym_from_lower(w[r0:r1, r0:r1]), name_p, cfg)
+        diag = _round(_sym_from_lower(w[..., r0:r1, r0:r1]), name_p, cfg)
         lpp = ops.potrf(diag.to(high))
         lpp = _round(lpp.to(w.dtype), name_p, cfg)
         if p < T - 1:
             linv = ops.tri_inv(lpp.to(high))
             meta = plan.panel_meta(p)
-            ops.panel_update(
-                linv.to(w.dtype), w[r1:, r0:r1], w[r1:, r1:],
-                store_names=meta.store_names, store_quants=meta.store_quants,
-                pair_names=meta.pair_names, pair_quants=meta.pair_quants,
-                rounding=cfg.storage_rounding)
-        w[r0:r1, r0:r1] = lpp
-        w[:r0, r0:r1] = 0
+            ops.panel_update(linv.to(w.dtype), w[..., r1:, r0:r1],
+                             w[..., r1:, r1:], store_names=meta.store_names,
+                             store_quants=meta.store_quants,
+                             pair_names=meta.pair_names,
+                             pair_quants=meta.pair_quants,
+                             rounding=cfg.storage_rounding)
+        w[..., r0:r1, r0:r1] = lpp
+        w[..., :r0, r0:r1] = 0
     return w
 
 

@@ -105,10 +105,12 @@ def scaled_solve(correct: Callable) -> Callable:
     underflow; scaling each column of r to O(1) before the solve and back
     after is exact for a linear operator. Per column, because a batch
     stacks unrelated requests whose residuals differ by orders of
-    magnitude.
+    magnitude. A stack (N, n, k) of independent systems (K-FAC's batched
+    whitening) scales each system's columns on their own, as the
+    reference does for each system under ``jax.vmap``.
     """
     def wrapped(r):
-        absmax = (r.abs().amax(dim=0, keepdim=True) if r.dim() == 2
+        absmax = (r.abs().amax(dim=-2, keepdim=True) if r.dim() >= 2
                   else r.abs().amax())
         s = torch.clamp_min(absmax, _TINY)
         return correct(r / s) * s

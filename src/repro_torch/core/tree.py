@@ -22,6 +22,17 @@ result is returned. The per-block scales stay 0-d tensors on the
 operands' device and go to the kernels as such, so no node waits for the
 card.
 
+``tree_trsm_left`` also takes a stack of N independent systems, ``b``
+(N, n, k) and ``l`` (N, n, n), the reference's function under
+``jax.vmap`` (K-FAC's whitening): every node's GEMM is one batched
+``qgemm`` and every leaf one batched ``tri_inv_leaf`` and ``qgemm``, with
+each system's quantization scales and storage roundings its own
+(``quantize.quant_block`` of a 3-D stack). ``tree_potrf`` takes a stack
+whose blocks are at most one leaf (one batched ``potrf_leaf``) and
+refuses a stack of larger blocks: the recursion's right solves and SYRKs
+have no batched form yet (ROADMAP C), and one recursion a matrix would
+cost thousands of launches a K-FAC refactor.
+
 The padding helpers (``pad_spd``, ``pad_factor``) are shared with the
 blocked engine and the solve entry points.
 """
@@ -37,7 +48,8 @@ from repro_torch.kernels import ops
 def _round_to(x, name: str, cfg: PrecisionConfig):
     """Round ``x`` to the level's storage grid, keep its dtype (the
     identity, ``x`` itself, when storage rounding is off or the grid is
-    the container's)."""
+    the container's). A 3-D ``x`` is a stack of blocks, each on its own
+    scale."""
     if not cfg.storage_rounding:
         return x
     return storage_round(x, name, cfg.quantize)
@@ -56,7 +68,7 @@ def _work(x):
 
 
 def _sym_from_lower(a):
-    return torch.tril(a) + torch.tril(a, -1).T
+    return torch.tril(a) + torch.tril(a, -1).transpose(-1, -2)
 
 
 # ---------------------------------------------------------------------------
@@ -129,30 +141,30 @@ def _syrk_into(c, a, alpha, beta, cfg: PrecisionConfig, level: int) -> None:
 def _trsm_left_into(x, l, cfg: PrecisionConfig, trans: bool,
                     level: int) -> None:
     """The solve sweeps: ``x <- L^-1 x`` or, with ``trans``,
-    ``x <- L^-T x``."""
-    n = x.shape[0]
+    ``x <- L^-T x``; a 3-D ``x`` and ``l`` are N systems at once."""
+    n = x.shape[-2]
     name = cfg.name_at(level)
     if n <= cfg.leaf:
         high = cfg.high_dtype
-        r = ops.trsm(_round_to(x, name, cfg).to(high), l.to(high),
-                     side="left", trans=trans)
+        xh, lh = _round_to(x, name, cfg).to(high), l.to(high)
+        r = ops.trsm(xh, lh, side="left", trans=trans)
         x.copy_(_round_to(r.to(x.dtype), name, cfg))
         return
     n1 = cfg.split(n)
-    l11, l21, l22 = l[:n1, :n1], l[n1:, :n1], l[n1:, n1:]
+    l11, l21, l22 = l[..., :n1, :n1], l[..., n1:, :n1], l[..., n1:, n1:]
     q = cfg.needs_quant(level)
     if not trans:
         # y1 = L11^{-1} B1 ; B2 -= L21 y1 ; y2 = L22^{-1} B2
-        _trsm_left_into(x[:n1], l11, cfg, False, level + 1)
+        _trsm_left_into(x[..., :n1, :], l11, cfg, False, level + 1)
         lq, s1 = quant_block(l21, name, q)
-        yq, s2 = quant_block(x[:n1], name, q)
-        rest, nxt = x[n1:], l22
+        yq, s2 = quant_block(x[..., :n1, :], name, q)
+        rest, nxt = x[..., n1:, :], l22
     else:
         # x2 = L22^{-T} B2 ; B1 -= L21^T x2 ; x1 = L11^{-T} B1
-        _trsm_left_into(x[n1:], l22, cfg, True, level + 1)
-        lq, s1 = quant_block(l21.T, name, q)
-        yq, s2 = quant_block(x[n1:], name, q)
-        rest, nxt = x[:n1], l11
+        _trsm_left_into(x[..., n1:, :], l22, cfg, True, level + 1)
+        lq, s1 = quant_block(l21.transpose(-1, -2), name, q)
+        yq, s2 = quant_block(x[..., n1:, :], name, q)
+        rest, nxt = x[..., :n1, :], l11
     ops.qgemm(lq, yq, -(s1 * s2), c=rest, beta=1.0, out_dtype=x.dtype,
               out=rest)
     _round_into(rest, name, cfg)
@@ -178,9 +190,15 @@ def tree_potrf(a, cfg: PrecisionConfig, *, level: int = 0):
     """Lower Cholesky factor of SPD ``a`` (paper Alg. 1). Reads the lower
     triangle only; returns a new L with a zeroed upper triangle.
     ``a.shape[-1]`` must be a multiple of ``cfg.leaf`` (use
-    :func:`pad_spd` otherwise)."""
+    :func:`pad_spd` otherwise). A stack (N, n, n) of blocks of at most
+    one leaf gives the N factors in one batched launch."""
     n = a.shape[-1]
-    assert a.shape == (n, n), a.shape
+    assert a.dim() in (2, 3) and a.shape[-2:] == (n, n), a.shape
+    if a.dim() == 3 and n > cfg.leaf:
+        raise NotImplementedError(
+            f"tree_potrf of a stack of ({n} x {n}) blocks, larger than the "
+            f"leaf {cfg.leaf}: the batched recursion is ROADMAP C's open "
+            "item; factor such stacks with blocked_potrf")
     w = _work(a)
     _potrf_into(w, cfg, level)
     return w.tril_()
@@ -217,9 +235,12 @@ def tree_trsm_left(b, l, cfg: PrecisionConfig, *, trans: bool,
 
     trans=False : X = L^{-1} B      (forward substitution)
     trans=True  : X = L^{-T} B      (back substitution)
+
+    ``b`` (N, n, k) and ``l`` (N, n, n): N systems, batched launches.
     """
-    n = b.shape[0]
-    assert l.shape == (n, n), (b.shape, l.shape)
+    n = b.shape[-2]
+    assert b.dim() in (2, 3) and l.shape == (*b.shape[:-2], n, n), (
+        b.shape, l.shape)
     x = _work(b)
     _trsm_left_into(x, l, cfg, trans, level)
     return x

@@ -60,6 +60,14 @@
 //      does not take) is one CTA a tile: it walks the tile's sub-blocks,
 //      writes the unrounded update while it takes the absmax, then rounds
 //      what it wrote.
+// Batched (panel_update_batched: the K-FAC refactor's panel p of every
+// block at once): one plan for all N matrices (it depends on m, b and the
+// ladder only), and every step above is one launch over the batch, the
+// batch index the last grid dimension (the tc route's tensor map spans the
+// N codes buffers of a slot as N m rows, a box never crossing a matrix);
+// each matrix's tiles take their own absmax and scales, so element z's
+// bits are those of the one-matrix call on it (the one-matrix entry is
+// the batched one with N = 1).
 // Summation order: a tile's b-term dot products are summed in another
 // order than the reference's (the tensor cores' f32 accumulation, or
 // sequential fma in k order on the CUDA cores), so a result may differ in
@@ -133,15 +141,17 @@ __device__ void tile_map(const T* src, ll lds, Td* dst, ll ldd, int b, F f) {
   tile_walk(src, lds, b, [&](T v, int r, int c) { dst[(ll)r * ldd + c] = f(v); });
 }
 
-// Round row tile i (rows i*b .. i*b+b-1, b columns) of src into dst.
-// code < 0: the tile's code comes from codes[i].
+// Round row tile i (rows i*b .. i*b+b-1, b columns) of src into dst, for
+// batch element blockIdx.y (ss, sd: the batch strides). code < 0: the
+// tile's code comes from codes[i].
 template <typename T>
 __global__ void __launch_bounds__(R_THREADS)
-panel_round_rows(const T* src, ll lds, T* dst, ll ldd, int b, const int* codes, int code) {
+panel_round_rows(const T* src, ll lds, ll ss, T* dst, ll ldd, ll sd, int b, const int* codes,
+                 int code) {
   const int i = blockIdx.x;
   const int rc = code >= 0 ? code : codes[i];
-  const T* s = src + (ll)i * b * lds;
-  T* d = dst + (ll)i * b * ldd;
+  const T* s = src + (ll)blockIdx.y * ss + (ll)i * b * lds;
+  T* d = dst + (ll)blockIdx.y * sd + (ll)i * b * ldd;
   if (rc_identity<T>(rc)) {
     if (s != d) tile_map(s, lds, d, ldd, b, [](T v) { return v; });
     return;
@@ -171,11 +181,16 @@ constexpr int simt_smem() {
 }
 
 // O (M x N) = A (M x K, ld lda) @ B^T, B (N x K, ld ldb); both K-major,
-// 16-byte aligned rows. Grid (N / BT, M / BT).
+// 16-byte aligned rows. Grid (N / BT, M / BT, batch); sa, sb, so: the
+// batch strides.
 template <typename T, int BT, int TM>
 __global__ void __launch_bounds__(SG_THREADS)
-panel_solve(const T* A, ll lda, const T* B, ll ldb, T* O, ll ldo, int M, int N, int K) {
+panel_solve(const T* A, ll lda, ll sa, const T* B, ll ldb, ll sb, T* O, ll ldo, ll so, int M,
+            int N, int K) {
   extern __shared__ __align__(16) uint8_t sm_raw[];
+  A += (ll)blockIdx.z * sa;
+  B += (ll)blockIdx.z * sb;
+  O += (ll)blockIdx.z * so;
   const int m0 = blockIdx.y * BT, n0 = blockIdx.x * BT;
   T acc[TM][TM];
   sg_block_async<T, T, BT, BT, TM, TM, PS_ST, PS_BK>(acc, (T*)sm_raw, A, lda, B, ldb, M, N, m0,
@@ -206,8 +221,9 @@ template <> __device__ __forceinline__ int8_t to_code<int8_t>(float v) {
   return (int8_t)fminf(fmaxf(rintf(v), -127.0f), 127.0f);
 }
 
-// Row tile i of L21 as codes of slot s: dst + s * slot_stride bytes, b x b
-// codes a tile, ld b; alpha[s * nt + i] its scale. f16 and int8 codes are
+// Row tile i of L21 as codes of slot s: dst + s * slot_stride bytes, then
+// m b codes a batch element, b x b codes a tile, ld b; alpha[(s * N + z) *
+// nt + i] its scale. f16 and int8 codes are
 // x / alpha (alpha = 1 unscaled), bf16 codes are bf16(x).
 template <typename Tq>
 __device__ void tile_codes(const float* src, ll lds, Tq* dst, float* alpha_out, int b, int rc) {
@@ -217,18 +233,20 @@ __device__ void tile_codes(const float* src, ll lds, Tq* dst, float* alpha_out, 
   tile_map(src, lds, dst, (ll)b, b, [=](float v) { return to_code<Tq>(scaled ? v / alpha : v); });
 }
 
-// grid (nt, nslots); codes[s], kinds[s]: the slot's rounding code and kind
+// grid (nt, nslots, N); codes[s], kinds[s]: the slot's rounding code and
+// kind; sl: L21's batch stride
 template <typename T>
 __global__ void __launch_bounds__(R_THREADS)
-panel_copies(const T* l21, ll lda, uint8_t* lq, ll slot_stride, float* alpha, const int* codes,
-             const int* kinds, int nt, int b) {
-  const int i = blockIdx.x, s = blockIdx.y;
+panel_copies(const T* l21, ll lda, ll sl, uint8_t* lq, ll slot_stride, float* alpha,
+             const int* codes, const int* kinds, int nt, int b) {
+  const int i = blockIdx.x, s = blockIdx.y, z = blockIdx.z;
   const int rc = codes[s], kind = kinds[s];
   if (kind == KIND_SELF) return;
-  const T* src = l21 + (ll)i * b * lda;
+  const T* src = l21 + (ll)z * sl + (ll)i * b * lda;
   uint8_t* slot = lq + s * slot_stride;
+  const ll t0 = ((ll)z * nt + i) * b * b;  // the tile's first element in the slot
   if (kind == KIND_SIMT) {
-    T* d = (T*)slot + (ll)i * b * b;
+    T* d = (T*)slot + t0;
     if (rc_identity<T>(rc)) {
       tile_map(src, lda, d, (ll)b, b, [](T v) { return v; });
       return;
@@ -238,13 +256,13 @@ panel_copies(const T* l21, ll lda, uint8_t* lq, ll slot_stride, float* alpha, co
     return;
   }
   if constexpr (sizeof(T) == 4) {  // the tc route takes f32 containers only
-    float* al = alpha + s * nt + i;
+    float* al = alpha + ((ll)s * gridDim.z + z) * nt + i;
     if (kind == KIND_F16)
-      tile_codes<__half>(src, lda, (__half*)slot + (ll)i * b * b, al, b, rc);
+      tile_codes<__half>(src, lda, (__half*)slot + t0, al, b, rc);
     else if (kind == KIND_BF16)
-      tile_codes<__nv_bfloat16>(src, lda, (__nv_bfloat16*)slot + (ll)i * b * b, al, b, rc);
+      tile_codes<__nv_bfloat16>(src, lda, (__nv_bfloat16*)slot + t0, al, b, rc);
     else
-      tile_codes<int8_t>(src, lda, (int8_t*)slot + (ll)i * b * b, al, b, rc);
+      tile_codes<int8_t>(src, lda, (int8_t*)slot + t0, al, b, rc);
   }
 }
 
@@ -334,12 +352,14 @@ __device__ __forceinline__ float get_f32(float v) { return v; }
 __device__ __forceinline__ float get_f32(int v) { return __int_as_float(v); }
 
 // One b x b tile (i, j) per cluster of NB CTAs; CTA rank r owns rows
-// 128 r .. 128 r + 127 of it. items[p] = i << 16 | j. alpha: the slot's
-// per-row-tile scales. rc: the pair name's rounding code.
+// 128 r .. 128 r + 127 of it; batch element blockIdx.y. items[p] = i << 16
+// | j. map: the slot's codes, N m rows; alpha: the slot's per-row-tile
+// scales, nt a batch element; sc: C's batch stride. rc: the pair name's
+// rounding code.
 template <typename T, int B>
 __global__ void __launch_bounds__(PT_THREADS, 1)
-panel_tc(const __grid_constant__ CUtensorMap map, const float* alpha, float* C, ll ldc,
-         const int* items, int rc, int rounding, int cvec) {
+panel_tc(const __grid_constant__ CUtensorMap map, const float* alpha, float* C, ll ldc, ll sc,
+         const int* items, int rc, int rounding, int cvec, int m, int nt) {
   using S = PtcShape<T, B>;
   using Acc = typename Ptc<T>::Acc;
   extern __shared__ uint8_t smem_raw[];
@@ -352,16 +372,17 @@ panel_tc(const __grid_constant__ CUtensorMap map, const float* alpha, float* C, 
   const int rank = blockIdx.x % S::NB;
   const int item = items[blockIdx.x / S::NB];
   const int ti = item >> 16, tj = item & 0xffff;
-  const int b = B;
-  float* Ct = C + (ll)ti * b * ldc + (ll)tj * b;
+  const int b = B, z = blockIdx.y, zr = z * m;  // zr: the batch element's first row
+  alpha += (ll)z * nt;
+  float* Ct = C + (ll)z * sc + (ll)ti * b * ldc + (ll)tj * b;
   // k-stage kt of the tile into ring stage kt % NS
   auto load = [&](int kt) {
     const int s = kt % S::NS;
     const uint32_t st = base + s * S::STAGE, bar = smem_u32(&full[s]);
     bar_expect_tx(bar, S::STAGE);
-    tma_load_2d(st, &map, bar, kt * S::KT, ti * b + PT_ROWS * rank);
+    tma_load_2d(st, &map, bar, kt * S::KT, zr + ti * b + PT_ROWS * rank);
     for (int h = 0; h < S::NB; ++h)
-      tma_load_2d(st + (1 + h) * S::BOX, &map, bar, kt * S::KT, tj * b + PT_ROWS * h);
+      tma_load_2d(st + (1 + h) * S::BOX, &map, bar, kt * S::KT, zr + tj * b + PT_ROWS * h);
   };
 
   if (tid == 0) {
@@ -509,9 +530,10 @@ panel_tc(const __grid_constant__ CUtensorMap map, const float* alpha, float* C, 
 }
 
 template <typename T, int B>
-static int launch_tc(const void* codes, int m, const float* alpha, float* C, ll ldc,
-                     const int* items, int npairs, int rc, int rounding, cudaStream_t stream) {
-  const int cvec = ((uintptr_t)C % 16 == 0) && (ldc % 4 == 0);
+static int launch_tc(const void* codes, int m, int nbatch, const float* alpha, float* C, ll ldc,
+                     ll sc, const int* items, int npairs, int rc, int rounding,
+                     cudaStream_t stream) {
+  const int cvec = ((uintptr_t)C % 16 == 0) && (ldc % 4 == 0) && (sc % 4 == 0);
   using S = PtcShape<T, B>;
   static bool configured = false;  // the attribute is set once per instance
   if (!configured) {
@@ -520,13 +542,13 @@ static int launch_tc(const void* codes, int m, const float* alpha, float* C, ll 
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  // (m rows, b codes of k) K-major, boxes of 128 rows x 128 bytes of k
+  // (N m rows, b codes of k) K-major, boxes of 128 rows x 128 bytes of k
   CUtensorMap map;
-  const int err = encode_2d(&map, Ptc<T>::TYPE, codes, B, m, (uint64_t)B * sizeof(T), S::KT,
-                            PT_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
+  const int err = encode_2d(&map, Ptc<T>::TYPE, codes, B, (uint64_t)m * nbatch,
+                            (uint64_t)B * sizeof(T), S::KT, PT_ROWS, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S::NB * npairs);
+  cfg.gridDim = dim3(S::NB * npairs, nbatch);
   cfg.blockDim = dim3(PT_THREADS);
   cfg.dynamicSmemBytes = S::SMEM;
   cfg.stream = stream;
@@ -537,17 +559,20 @@ static int launch_tc(const void* codes, int m, const float* alpha, float* C, ll 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, panel_tc<T, B>, map, alpha, C, ldc, items, rc, rounding,
-                                 cvec);
+  return (int)cudaLaunchKernelEx(&cfg, panel_tc<T, B>, map, alpha, C, ldc, sc, items, rc,
+                                 rounding, cvec, m, m / B);
 }
 
 template <typename T>
-static int launch_tc_b(const void* codes, int m, int b, const float* alpha, float* C, ll ldc,
-                       const int* items, int npairs, int rc, int rounding, cudaStream_t stream) {
+static int launch_tc_b(const void* codes, int m, int nbatch, int b, const float* alpha, float* C,
+                       ll ldc, ll sc, const int* items, int npairs, int rc, int rounding,
+                       cudaStream_t stream) {
   if (b == 256)
-    return launch_tc<T, 256>(codes, m, alpha, C, ldc, items, npairs, rc, rounding, stream);
+    return launch_tc<T, 256>(codes, m, nbatch, alpha, C, ldc, sc, items, npairs, rc, rounding,
+                             stream);
   if (b == 128)
-    return launch_tc<T, 128>(codes, m, alpha, C, ldc, items, npairs, rc, rounding, stream);
+    return launch_tc<T, 128>(codes, m, nbatch, alpha, C, ldc, sc, items, npairs, rc, rounding,
+                             stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -555,11 +580,13 @@ static int launch_tc_b(const void* codes, int m, int b, const float* alpha, floa
 // step 6: CUDA cores
 // ---------------------------------------------------------------------------
 // items[p] = {i << 16 | j, slot << 16 | rc << 8 | sub}: sub-block sub of the
-// tile (row-major over (b / BT)^2), or SUB_ALL for the whole tile.
+// tile (row-major over (b / BT)^2), or SUB_ALL for the whole tile; batch
+// element blockIdx.y (sl, sc: L21's and C's batch strides; a slot holds m b
+// values a batch element).
 template <typename T, int BT, int TM>
 __global__ void __launch_bounds__(SG_THREADS)
-panel_simt(const uint8_t* lq, ll slot_stride, const T* l21, ll lda, const int* kinds, T* C,
-           ll ldc, const int2* items, int b, int rounding, int cvec) {
+panel_simt(const uint8_t* lq, ll slot_stride, const T* l21, ll lda, ll sl, const int* kinds,
+           T* C, ll ldc, ll sc, const int2* items, int m, int b, int rounding, int cvec) {
   extern __shared__ __align__(16) uint8_t sm_raw[];
   constexpr int CX = BT / TM, CP = simt_cpitch<T, BT>(), VW = 16 / sizeof(T);
   // C's sub-block comes into shared memory by cp.async while the ring's
@@ -570,11 +597,12 @@ panel_simt(const uint8_t* lq, ll slot_stride, const T* l21, ll lda, const int* k
   const int slot = it.y >> 16, rc = (it.y >> 8) & 0xff, sub = it.y & 0xff;
   // the pair name's copy of L21 (rows b apart), or L21 itself
   const bool self = kinds[slot] == KIND_SELF;
-  const T* L = self ? l21 : (const T*)(lq + slot * slot_stride);
+  const ll z = blockIdx.y;
+  const T* L = self ? l21 + z * sl : (const T*)(lq + slot * slot_stride) + z * m * b;
   const ll ld = self ? lda : b;
   const T* Li = L + (ll)ti * b * ld;
   const T* Lj = L + (ll)tj * b * ld;
-  T* Ct = C + (ll)ti * b * ldc + (ll)tj * b;
+  T* Ct = C + z * sc + (ll)ti * b * ldc + (ll)tj * b;
   const bool diag = ti == tj;
   const bool rnd = rounding && !rc_identity<T>(rc);
   const int tx = threadIdx.x % CX, ty = threadIdx.x / CX;
@@ -635,11 +663,13 @@ static int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Steps 2 and 6 at one tile shape.
+// Steps 2 and 6 at one tile shape, over nbatch matrices (sl, sa, sc: the
+// batch strides of Linv, A21 and C; A_r is (nbatch, m, b) contiguous).
 template <typename T, int BT, int TM>
-static int launch_simt(const T* ar, const void* linv, ll ldlinv, T* a21, ll lda, const uint8_t* lq,
-                       ll slot_stride, const int* kinds, T* c, ll ldc, const int2* items,
-                       int nitems, int m, int b, int rounding, cudaStream_t stream) {
+static int launch_simt(const T* ar, const void* linv, ll ldlinv, ll sl, T* a21, ll lda, ll sa,
+                       const uint8_t* lq, ll slot_stride, const int* kinds, T* c, ll ldc, ll sc,
+                       const int2* items, int nitems, int m, int b, int nbatch, int rounding,
+                       cudaStream_t stream) {
   constexpr int SM = simt_smem<T, BT, TM>(), SM_SOLVE = sg_async_smem<T, BT, BT, PS_ST, PS_BK>();
   static bool configured = false;
   if (!configured) {
@@ -649,63 +679,70 @@ static int launch_simt(const T* ar, const void* linv, ll ldlinv, T* a21, ll lda,
     configured = true;
   }
   if (ar) {
-    panel_solve<T, BT, TM><<<dim3(b / BT, m / BT), SG_THREADS, SM_SOLVE, stream>>>(
-        ar, b, (const T*)linv, ldlinv, a21, lda, m, b, b);
+    panel_solve<T, BT, TM><<<dim3(b / BT, m / BT, nbatch), SG_THREADS, SM_SOLVE, stream>>>(
+        ar, b, (ll)m * b, (const T*)linv, ldlinv, sl, a21, lda, sa, m, b, b);
     return (int)cudaGetLastError();
   }
+  constexpr int VW = 16 / sizeof(T);
   if (nitems > 0)
-    panel_simt<T, BT, TM><<<nitems, SG_THREADS, SM, stream>>>(
-        lq, slot_stride, a21, lda, kinds, c, ldc, items, b, rounding,
-        ((uintptr_t)c % 16 == 0) && (ldc % (16 / sizeof(T)) == 0));
+    panel_simt<T, BT, TM><<<dim3(nitems, nbatch), SG_THREADS, SM, stream>>>(
+        lq, slot_stride, a21, lda, sa, kinds, c, ldc, sc, items, m, b, rounding,
+        ((uintptr_t)c % 16 == 0) && (ldc % VW == 0) && (sc % VW == 0));
   return (int)cudaGetLastError();
 }
 
 // the CUDA cores' square tile bt: 128 (f32) or 64 (kernels/panel.py:simt_tile)
 template <typename T>
-static int simt(int b, int bt, const T* ar, const void* linv, ll ldlinv, T* a21, ll lda,
-                const uint8_t* lq, ll slot_stride, const int* kinds, T* c, ll ldc,
-                const int2* items, int nitems, int m, int rounding, cudaStream_t stream) {
+static int simt(int b, int bt, const T* ar, const void* linv, ll ldlinv, ll sl, T* a21, ll lda,
+                ll sa, const uint8_t* lq, ll slot_stride, const int* kinds, T* c, ll ldc, ll sc,
+                const int2* items, int nitems, int m, int nbatch, int rounding,
+                cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
     if (bt == 128)
-      return launch_simt<T, 128, 8>(ar, linv, ldlinv, a21, lda, lq, slot_stride, kinds, c, ldc,
-                                    items, nitems, m, b, rounding, stream);
+      return launch_simt<T, 128, 8>(ar, linv, ldlinv, sl, a21, lda, sa, lq, slot_stride, kinds, c,
+                                    ldc, sc, items, nitems, m, b, nbatch, rounding, stream);
   }
-  return launch_simt<T, 64, 4>(ar, linv, ldlinv, a21, lda, lq, slot_stride, kinds, c, ldc, items,
-                               nitems, m, b, rounding, stream);
+  return launch_simt<T, 64, 4>(ar, linv, ldlinv, sl, a21, lda, sa, lq, slot_stride, kinds, c, ldc,
+                               sc, items, nitems, m, b, nbatch, rounding, stream);
 }
 
 // ---------------------------------------------------------------------------
 // the C entry: one panel
 // ---------------------------------------------------------------------------
-// lq: nslots slots of slot_stride bytes (the pair-name copies); alpha:
-// nslots x nt f32 scales; codes/kinds: the slots' rounding codes and kinds
-// on the device, kinds_h the same on the host; tc_items: each tc slot's
-// pairs, tc_off[s] .. tc_off[s + 1] (host offsets); simt_items: the simt
-// route's items.
+// nbatch matrices at batch strides sl (Linv), sa (A21), sc (C); a_r:
+// (nbatch, m, b) scratch; lq: nslots slots of slot_stride bytes (the
+// pair-name copies, m b values a batch element); alpha: nslots x nbatch x
+// nt f32 scales; codes/kinds: the slots' rounding codes and kinds on the
+// device, kinds_h the same on the host; tc_items: each tc slot's pairs,
+// tc_off[s] .. tc_off[s + 1] (host offsets); simt_items: the simt route's
+// items. Every matrix takes the same items.
 template <typename T>
-static int launch(const void* linv, ll ldlinv, void* a21, ll lda, void* c, ll ldc, void* a_r,
-                  void* lq, ll slot_stride, float* alpha, const void* store_tab, const int* codes,
-                  const int* kinds, const int* codes_h, const int* kinds_h, int nslots,
-                  const int* tc_items, const int* tc_off, const void* simt_items, int nsimt,
-                  int nt, int b, int bt, int rounding, void* stream_) {
+static int launch(const void* linv, ll ldlinv, ll sl, void* a21, ll lda, ll sa, void* c, ll ldc,
+                  ll sc, int nbatch, void* a_r, void* lq, ll slot_stride, float* alpha,
+                  const void* store_tab, const int* codes, const int* kinds, const int* codes_h,
+                  const int* kinds_h, int nslots, const int* tc_items, const int* tc_off,
+                  const void* simt_items, int nsimt, int nt, int b, int bt, int rounding,
+                  void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const int m = nt * b;
+  const ll mb = (ll)m * b;
   T* A21 = (T*)a21;
   T* Ar = (T*)a_r;
   const int* stab = (const int*)store_tab;
+  const dim3 rows(nt, nbatch);
   // 1. incoming panel at its storage names (a plain copy without rounding)
-  panel_round_rows<T><<<nt, R_THREADS, 0, stream>>>(A21, lda, Ar, b, b, stab,
-                                                     rounding ? -1 : NM_F64);
+  panel_round_rows<T><<<rows, R_THREADS, 0, stream>>>(A21, lda, sa, Ar, b, mb, b, stab,
+                                                       rounding ? -1 : NM_F64);
   // 2. L21 = A_r @ Linv^T over A21
-  int err = simt<T>(b, bt, Ar, linv, ldlinv, A21, lda, nullptr, 0, nullptr, nullptr, 0, nullptr,
-                    0, m, rounding, stream);
+  int err = simt<T>(b, bt, Ar, linv, ldlinv, sl, A21, lda, sa, nullptr, 0, nullptr, nullptr, 0,
+                    0, nullptr, 0, m, nbatch, rounding, stream);
   if (err) return err;
   // 3. L21 back onto its storage grid
   if (rounding)
-    panel_round_rows<T><<<nt, R_THREADS, 0, stream>>>(A21, lda, A21, lda, b, stab, -1);
+    panel_round_rows<T><<<rows, R_THREADS, 0, stream>>>(A21, lda, sa, A21, lda, sa, b, stab, -1);
   // 4. one copy of L21 per pair name
-  panel_copies<T><<<dim3(nt, nslots), R_THREADS, 0, stream>>>(
-      A21, lda, (uint8_t*)lq, slot_stride, alpha, codes, kinds, nt, b);
+  panel_copies<T><<<dim3(nt, nslots, nbatch), R_THREADS, 0, stream>>>(
+      A21, lda, sa, (uint8_t*)lq, slot_stride, alpha, codes, kinds, nt, b);
   err = (int)cudaGetLastError();
   if (err) return err;
   // 5. the tensor cores' pairs, one launch per name
@@ -714,38 +751,41 @@ static int launch(const void* linv, ll ldlinv, void* a21, ll lda, void* c, ll ld
     if (np == 0) continue;  // a CUDA-core slot has no pairs here
     if constexpr (sizeof(T) != 4) return (int)cudaErrorInvalidValue;
     const uint8_t* codes_s = (const uint8_t*)lq + s * slot_stride;
-    const float* al = alpha + s * nt;
+    const float* al = alpha + (ll)s * nbatch * nt;
     const int* items = tc_items + tc_off[s];
     if (kinds_h[s] == KIND_F16)
-      err = launch_tc_b<__half>(codes_s, m, b, al, (float*)c, ldc, items, np, codes_h[s],
-                                rounding, stream);
+      err = launch_tc_b<__half>(codes_s, m, nbatch, b, al, (float*)c, ldc, sc, items, np,
+                                codes_h[s], rounding, stream);
     else if (kinds_h[s] == KIND_BF16)
-      err = launch_tc_b<__nv_bfloat16>(codes_s, m, b, al, (float*)c, ldc, items, np, codes_h[s],
-                                       rounding, stream);
+      err = launch_tc_b<__nv_bfloat16>(codes_s, m, nbatch, b, al, (float*)c, ldc, sc, items, np,
+                                       codes_h[s], rounding, stream);
     else
-      err = launch_tc_b<int8_t>(codes_s, m, b, al, (float*)c, ldc, items, np, codes_h[s],
-                                rounding, stream);
+      err = launch_tc_b<int8_t>(codes_s, m, nbatch, b, al, (float*)c, ldc, sc, items, np,
+                                codes_h[s], rounding, stream);
     if (err) return err;
   }
   // 6. the CUDA cores' pairs
-  return simt<T>(b, bt, nullptr, nullptr, 0, A21, lda, (const uint8_t*)lq, slot_stride, kinds,
-                 (T*)c, ldc, (const int2*)simt_items, nsimt, m, rounding, stream);
+  return simt<T>(b, bt, nullptr, nullptr, 0, 0, A21, lda, sa, (const uint8_t*)lq, slot_stride,
+                 kinds, (T*)c, ldc, sc, (const int2*)simt_items, nsimt, m, nbatch, rounding,
+                 stream);
 }
 
+// (Linv, ldlinv, its batch stride, A21, lda, batch stride, C, ldc, batch
+// stride, nbatch, ...): one panel of nbatch matrices (nbatch = 1: one).
 #define PANEL_ENTRY(NAME, T)                                                                 \
-  extern "C" int NAME(const void* linv, ll ldlinv, void* a21, ll lda, void* c, ll ldc,       \
-                      void* a_r, void* lq, ll slot_stride, void* alpha, const void* store_tab, \
-                      const void* codes, const void* kinds, const int* codes_h,              \
-                      const int* kinds_h, int nslots, const void* tc_items, const int* tc_off, \
-                      const void* simt_items, int nsimt, int nt, int b, int bt,             \
-                      int rounding, void* stream) {                                          \
-    if (b % 64 != 0 || nt <= 0 || nt > 0xffff || b % bt != 0 ||                            \
-        (bt != 64 && !(bt == 128 && sizeof(T) == 4)))                                        \
+  extern "C" int NAME(const void* linv, ll ldlinv, ll sl, void* a21, ll lda, ll sa, void* c, \
+                      ll ldc, ll sc, int nbatch, void* a_r, void* lq, ll slot_stride,       \
+                      void* alpha, const void* store_tab, const void* codes,                 \
+                      const void* kinds, const int* codes_h, const int* kinds_h, int nslots, \
+                      const void* tc_items, const int* tc_off, const void* simt_items,       \
+                      int nsimt, int nt, int b, int bt, int rounding, void* stream) {       \
+    if (b % 64 != 0 || nt <= 0 || nt > 0xffff || b % bt != 0 || nbatch <= 0 ||              \
+        nbatch > 0xffff || (bt != 64 && !(bt == 128 && sizeof(T) == 4)))                     \
       return (int)cudaErrorInvalidValue;                                                     \
-    return launch<T>(linv, ldlinv, a21, lda, c, ldc, a_r, lq, slot_stride, (float*)alpha,   \
-                     store_tab, (const int*)codes, (const int*)kinds, codes_h, kinds_h,      \
-                     nslots, (const int*)tc_items, tc_off, simt_items, nsimt, nt, b, bt,     \
-                     rounding, stream);                                                      \
+    return launch<T>(linv, ldlinv, sl, a21, lda, sa, c, ldc, sc, nbatch, a_r, lq,            \
+                     slot_stride, (float*)alpha, store_tab, (const int*)codes,               \
+                     (const int*)kinds, codes_h, kinds_h, nslots, (const int*)tc_items,      \
+                     tc_off, simt_items, nsimt, nt, b, bt, rounding, stream);               \
   }
 
 PANEL_ENTRY(panel_update_f32, float)

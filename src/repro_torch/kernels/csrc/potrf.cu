@@ -42,6 +42,10 @@
 // comes out NaN on and below the diagonal, as jnp.linalg.cholesky and the
 // plain version (cholesky_ex + where) give it.
 // The input is read through its leading dimension; `out` may be `a`.
+// potrf_{f32,f64} factor T tiles at tile strides in one launch, one CTA a
+// tile (potrf_leaf_batched: the K-FAC refactor's diagonal tiles of every
+// block at once; a single tile is T = 1): each tile's bits equal a single
+// launch's.
 #include "common.cuh"
 
 constexpr int POTRF_THREADS = 512;
@@ -167,8 +171,10 @@ __device__ void panels(const S& st, int nb, int p0, int p1, T* U, int* bad) {
 // into shared memory for the rest.
 template <typename T, bool RES, bool VEC>
 __global__ void __launch_bounds__(POTRF_THREADS)
-potrf_kernel(const T* A, ll lda, T* O, ll ldo, int b, int ps) {
+potrf_kernel(const T* A, ll lda, ll sa, T* O, ll ldo, ll so, int b, int ps) {
   constexpr int VW = 16 / sizeof(T);
+  A += (ll)blockIdx.x * sa;
+  O += (ll)blockIdx.x * so;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* U = reinterpret_cast<T*>(smem_raw);  // LB x LB, then the triangle
   __shared__ int bad;
@@ -226,18 +232,21 @@ potrf_kernel(const T* A, ll lda, T* O, ll ldo, int b, int ps) {
 }
 
 template <typename T, bool RES, bool VEC>
-static int launch_variant(const T* A, ll lda, T* O, ll ldo, int b, int ps, size_t smem,
-                          cudaStream_t stream) {
+static int launch_variant(const T* A, ll lda, ll sa, T* O, ll ldo, ll so, int b, int ps,
+                          int ntiles, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       potrf_kernel<T, RES, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  potrf_kernel<T, RES, VEC><<<1, POTRF_THREADS, smem, stream>>>(A, lda, O, ldo, b, ps);
+  potrf_kernel<T, RES, VEC><<<ntiles, POTRF_THREADS, smem, stream>>>(A, lda, sa, O, ldo, so, b,
+                                                                     ps);
   RETURN_LAUNCH_STATUS();
 }
 
 template <typename T>
-static int launch(const void* A, ll lda, void* O, ll ldo, int b, void* stream) {
-  if (b <= 0 || b % LB != 0 || b > 512) return (int)cudaErrorInvalidValue;
+static int launch(const void* A, ll lda, ll sa, void* O, ll ldo, ll so, int b, int ntiles,
+                  void* stream) {
+  if (b <= 0 || b % LB != 0 || b > 512 || ntiles <= 0 || ntiles > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   constexpr int VW = 16 / sizeof(T);
   const int nb = b / LB;
   const size_t u = LB * LB * sizeof(T), limit = leaf_smem_limit();
@@ -245,21 +254,24 @@ static int launch(const void* A, ll lda, void* O, ll ldo, int b, void* stream) {
   while (u + tri_bytes(nb - ps, sizeof(T)) > limit) ++ps;
   const size_t smem = u + tri_bytes(nb - ps, sizeof(T));
   const bool vec = ((uintptr_t)A % 16 == 0) && ((uintptr_t)O % 16 == 0) && lda % VW == 0 &&
-                   ldo % VW == 0;
+                   ldo % VW == 0 && sa % VW == 0 && so % VW == 0;
   const T* a = (const T*)A;
   T* o = (T*)O;
   cudaStream_t s = (cudaStream_t)stream;
   if (ps == 0) {
-    return vec ? launch_variant<T, true, true>(a, lda, o, ldo, b, 0, smem, s)
-               : launch_variant<T, true, false>(a, lda, o, ldo, b, 0, smem, s);
+    return vec ? launch_variant<T, true, true>(a, lda, sa, o, ldo, so, b, 0, ntiles, smem, s)
+               : launch_variant<T, true, false>(a, lda, sa, o, ldo, so, b, 0, ntiles, smem, s);
   }
-  return vec ? launch_variant<T, false, true>(a, lda, o, ldo, b, ps, smem, s)
-             : launch_variant<T, false, false>(a, lda, o, ldo, b, ps, smem, s);
+  return vec ? launch_variant<T, false, true>(a, lda, sa, o, ldo, so, b, ps, ntiles, smem, s)
+             : launch_variant<T, false, false>(a, lda, sa, o, ldo, so, b, ps, ntiles, smem, s);
 }
 
-extern "C" int potrf_f32(const void* A, ll lda, void* O, ll ldo, int b, void* s) {
-  return launch<float>(A, lda, O, ldo, b, s);
+// (A, lda, tile stride, O, ldo, tile stride, b, tiles, stream)
+extern "C" int potrf_f32(const void* A, ll lda, ll sa, void* O, ll ldo, ll so, int b,
+                         int ntiles, void* s) {
+  return launch<float>(A, lda, sa, O, ldo, so, b, ntiles, s);
 }
-extern "C" int potrf_f64(const void* A, ll lda, void* O, ll ldo, int b, void* s) {
-  return launch<double>(A, lda, O, ldo, b, s);
+extern "C" int potrf_f64(const void* A, ll lda, ll sa, void* O, ll ldo, ll so, int b,
+                         int ntiles, void* s) {
+  return launch<double>(A, lda, sa, O, ldo, so, b, ntiles, s);
 }

@@ -226,4 +226,20 @@ int qtc_map(CUtensorMap* map, const void* p, ll ld, int mn, int rows, int K, int
                         CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// qtc_map's operand for nbatch matrices sb elements apart (a third
+// dimension; sb * sizeof(T) a multiple of 16). One matrix takes a batch
+// stride of its own extent.
+template <typename T>
+int qtc_map_batched(CUtensorMap* map, const void* p, ll ld, ll sb, int nbatch, int mn, int rows,
+                    int K, int box_rows) {
+  constexpr int KT = Qtc<T>::KT;
+  const uint64_t k = K > 0 ? K : 1, s = (uint64_t)ld * sizeof(T);
+  const uint64_t outer = mn ? k : (uint64_t)rows;
+  const uint64_t sz = nbatch > 1 ? (uint64_t)sb * sizeof(T) : outer * s;
+  return mn ? encode_3d(map, Qtc<T>::TYPE, p, rows, k, nbatch, s, sz, 64, KT,
+                        CU_TENSOR_MAP_SWIZZLE_128B)
+            : encode_3d(map, Qtc<T>::TYPE, p, k, rows, nbatch, s, sz, KT, box_rows,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 }  // namespace

@@ -34,6 +34,17 @@ gave each (``tc``: f16, bf16 and int8 pairs on the tensor cores;
 :func:`repro_torch.kernels.trsm.plan` (``simt_wide``, ``simt_mid``,
 ``simt_ksplit``).
 
+``potrf``, ``tri_inv``, ``qgemm``, ``panel_update`` and the left forms of
+``trsm`` also take a stack of N matrices of one shape at a uniform batch
+stride (3-D operands), the reference's kernels under ``jax.vmap``
+(K-FAC's refactor and whitening), and launch once over the batch; so does
+``tri_inv_batched`` (a stack of tiles, such as the diagonal tiles of one
+factor). ``BATCHED`` counts those launches by kernel; they are part of
+``LAUNCHES`` too (``LAUNCHES[k] - BATCHED[k]`` launches took one matrix).
+Their routes go to the route counts as above, the pairs of all N matrices
+to ``PANEL_ROUTES``, and ``TILES`` counts the tiles of every
+``potrf_leaf`` and ``tri_inv_leaf`` launch.
+
 A scale or beta may be a 0-d f32 tensor on the operands' device (the
 per-block quantization scales of the tree engine): the kernels read it
 from device memory, so no call waits for the card.
@@ -59,12 +70,14 @@ QGEMM_ROUTES = dict.fromkeys(_qgemm.ROUTES, 0)
 PANEL_ROUTES = dict.fromkeys(_panel.ROUTES, 0)
 SYRK_PACKED_ROUTES = dict.fromkeys(_syrk.PACKED_ROUTES, 0)
 TRSM_ROUTES = dict.fromkeys(_trsm.ROUTES, 0)
-TILES = {"tri_inv_leaf": 0}
+TILES = {"potrf_leaf": 0, "tri_inv_leaf": 0}
+BATCHED = {"potrf_leaf": 0, "tri_inv_leaf": 0, "qgemm": 0,
+           "panel_update": 0}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLASH_ROUTES, QGEMM_ROUTES, PANEL_ROUTES,
-                   SYRK_PACKED_ROUTES, TRSM_ROUTES, TILES):
+                   SYRK_PACKED_ROUTES, TRSM_ROUTES, TILES, BATCHED):
         for k in counts:
             counts[k] = 0
 
@@ -89,15 +102,27 @@ def _store(res, out):
 
 
 def potrf(a, *, out=None):
-    """Lower Cholesky factor of one SPD leaf tile (NaN if not SPD)."""
+    """Lower Cholesky factor of one SPD leaf tile (NaN if not SPD), or the
+    factors of a (N, b, b) stack (read in place through its strides; no
+    ``out``): one launch of ``potrf_leaf`` on the card either way."""
     if _on_card(a, out):
         LAUNCHES["potrf_leaf"] += 1
+        if a.dim() == 3:
+            BATCHED["potrf_leaf"] += 1
+            TILES["potrf_leaf"] += a.shape[0]
+            return _potrf.potrf_leaf_batched(a)
+        TILES["potrf_leaf"] += 1
         return _potrf.potrf_leaf(a, out=out)
+    if a.dim() == 3:
+        return _ref.potrf_batched_ref(a)
     return _store(_ref.potrf_ref(a), out)
 
 
 def tri_inv(l, *, out=None):
-    """Inverse of a lower-triangular leaf tile."""
+    """Inverse of a lower-triangular leaf tile, or of each tile of a
+    (T, b, b) stack (:func:`tri_inv_batched`; no ``out``)."""
+    if l.dim() == 3:
+        return tri_inv_batched(l)
     if _on_card(l, out):
         LAUNCHES["tri_inv_leaf"] += 1
         TILES["tri_inv_leaf"] += 1
@@ -112,27 +137,31 @@ def tri_inv_batched(tiles):
     on the CPU."""
     if _on_card(tiles):
         LAUNCHES["tri_inv_leaf"] += 1
+        BATCHED["tri_inv_leaf"] += 1
         TILES["tri_inv_leaf"] += tiles.shape[0]
         return _potrf.tri_inv_leaf_batched(tiles)
-    out = torch.empty(tiles.shape, dtype=tiles.dtype, device=tiles.device)
-    for i in range(tiles.shape[0]):
-        out[i] = _ref.tri_inv_ref(tiles[i])
-    return out
+    return _ref.tri_inv_batched_ref(tiles)
 
 
 def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
           out_dtype=torch.float32, out=None):
     """``scale * (a @ b[.T]) + beta * c`` with wide accumulation. ``out``
-    may be the very tensor ``c`` (an in-place update), never ``a``/``b``."""
+    may be the very tensor ``c`` (an in-place update), never ``a``/``b``.
+    3-D operands are N products of one shape, ``a`` (N, M, K), ``b``
+    (N, K, N') (or (N, N', K) with ``trans_b``), ``c``/``out`` (N, M, N'),
+    in one launch; ``scale`` may then also be an (N,) f32 tensor, one a
+    matrix."""
     if _on_card(a, b, c, out, scale):
         res, plan = _qgemm.launch(a, b, scale, c=c, beta=beta,
                                   trans_b=trans_b, out_dtype=out_dtype,
                                   out=out)
         LAUNCHES["qgemm"] += 1
+        BATCHED["qgemm"] += a.dim() == 3
         QGEMM_ROUTES[plan.route] += 1
         return res
-    return _store(_ref.qgemm_ref(a, b, trans_b=trans_b, scale=scale, c=c,
-                                 beta=beta, out_dtype=out_dtype), out)
+    ref = _ref.qgemm_batched_ref if a.dim() == 3 else _ref.qgemm_ref
+    return _store(ref(a, b, trans_b=trans_b, scale=scale, c=c, beta=beta,
+                      out_dtype=out_dtype), out)
 
 
 def trsm(b, l, *, side="right", trans=True, linv=None):
@@ -142,9 +171,15 @@ def trsm(b, l, *, side="right", trans=True, linv=None):
     the leaf is inverted (``tri_inv_leaf``) unless ``linv`` is given, and
     the solve is a product with the inverse: ``trsm_leaf`` for the right
     form, ``qgemm`` for the left ones. On the CPU without ``linv`` it is
-    a triangular solve (:func:`~repro_torch.kernels.ref.trsm_ref`)."""
+    a triangular solve (:func:`~repro_torch.kernels.ref.trsm_ref`). The
+    left forms also take N systems, ``b`` (N, n, k) and ``l`` (N, n, n):
+    one batched ``tri_inv_leaf`` and one batched ``qgemm``."""
+    if side != "left" and b.dim() == 3:
+        raise NotImplementedError("trsm: the right form takes one matrix")
     card = _on_card(b, l, linv)
     if not card and linv is None:
+        if b.dim() == 3:
+            return _ref.trsm_batched_ref(b, l, side=side, trans=trans)
         return _ref.trsm_ref(b, l, side=side, trans=trans)
     if side == "right" and trans:
         if not card:
@@ -159,7 +194,7 @@ def trsm(b, l, *, side="right", trans=True, linv=None):
         raise NotImplementedError(f"trsm side={side} trans={trans}")
     if linv is None:
         linv = tri_inv(l)
-    return qgemm((linv.T if trans else linv).to(b.dtype), b,
+    return qgemm((linv.mT if trans else linv).to(b.dtype), b,
                  out_dtype=b.dtype)
 
 
@@ -196,6 +231,8 @@ def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,
     overwritten with ``L21 = A21 @ L11^-T`` and the lower tiles of ``c``
     with ``C - L21 L21^T`` at the plan's per-tile precisions; the strict
     upper triangle of ``c`` is left as it was. Returns ``(a21, c)``.
+    3-D operands, ``linv`` (N, b, b), ``a21`` (N, m, b), ``c`` (N, m, m),
+    are panel p of N matrices of one geometry, in one launch.
 
     (The reference returns new arrays; the blocked engine here updates
     its one working buffer instead.)
@@ -203,13 +240,17 @@ def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,
     kw = dict(store_names=store_names, store_quants=store_quants,
               pair_names=pair_names, pair_quants=pair_quants,
               rounding=rounding)
+    nbatch = a21.shape[0] if a21.dim() == 3 else 1
     if _on_card(linv, a21, c):
         res, routes = _panel.launch(linv, a21, c, **kw)
         LAUNCHES["panel_update"] += 1
+        BATCHED["panel_update"] += a21.dim() == 3
         for k, v in routes.items():
-            PANEL_ROUTES[k] += v
+            PANEL_ROUTES[k] += v * nbatch
         return res
-    l21, cu = _ref.panel_update_ref(linv, a21, c, **kw)
+    ref = (_ref.panel_update_batched_ref if a21.dim() == 3
+           else _ref.panel_update_ref)
+    l21, cu = ref(linv, a21, c, **kw)
     a21.copy_(l21)
     c.copy_(cu)
     return a21, c

@@ -27,6 +27,13 @@ multiplies; only the summation order of a tile's b-term dot products
 differs from the reference's (``csrc/panel.cu``). The plan's names reach
 the kernels as int32 rounding codes, ``name | quant << 3``; the tables
 are built once per panel geometry and kept on the device.
+
+:func:`launch` with 3-D operands runs panel p of N matrices of one
+geometry (``linv`` (N, b, b), ``a21`` (N, m, b), ``c`` (N, m, m), each at
+a uniform batch stride) in one launch of each step: the K-FAC refactor's
+panel of every block at once. All N share one plan; each matrix's tiles
+take their own absmax and scales, so matrix i's bits are those of
+:func:`panel_update` on it.
 """
 from __future__ import annotations
 
@@ -54,8 +61,12 @@ ROUTES = ("tc", "simt")
 SUB_ALL = 0xFF
 _FNS: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_ARGS = (_P, _L, _P, _L, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I,
-         _P, _P, _P, _I, _I, _I, _I, _I, _P)
+#: (linv, ldlinv, batch stride, a21, lda, batch stride, c, ldc, batch
+#: stride, nbatch, a_r, lq, slot_stride, alpha, store_tab, codes, kinds,
+#: codes_h, kinds_h, nslots, tc_items, tc_off, simt_items, nsimt, nt, b, bt,
+#: rounding, stream)
+_ARGS = (_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _P, _P, _L, _P, _P, _P, _P,
+         _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
 
 def _fn(dtype):
@@ -174,8 +185,17 @@ def _tables(pair_names, pair_quants, store_names, store_quants, dtype, b,
 
 def launch(linv, a21, c, *, store_names, store_quants, pair_names,
            pair_quants, rounding=True):
-    """One panel on the card; returns ``((a21, c), pairs by route)``."""
-    m, b = a21.shape
+    """One panel on the card (2-D operands), or panel p of N matrices
+    (3-D: (N, b, b), (N, m, b), (N, m, m)); returns ``((a21, c), pairs by
+    route)``, the pairs of one matrix."""
+    batched = a21.dim() == 3
+    nbatch = a21.shape[0] if batched else 1
+    if batched and (linv.dim() != 3 or c.dim() != 3 or nbatch == 0
+                    or linv.shape[0] != nbatch or c.shape[0] != nbatch):
+        raise ValueError(f"panel_update: batch shapes linv "
+                         f"{tuple(linv.shape)}, a21 {tuple(a21.shape)}, c "
+                         f"{tuple(c.shape)}")
+    m, b = a21.shape[-2:]
     nt = m // b
     dev = a21.device
     if dev.type != "cuda" or linv.device != dev or c.device != dev:
@@ -184,33 +204,39 @@ def launch(linv, a21, c, *, store_names, store_quants, pair_names,
             or c.dtype != a21.dtype:
         raise TypeError(f"panel_update: f32 or f64 containers, got "
                         f"{linv.dtype}, {a21.dtype}, {c.dtype}")
-    if (linv.shape != (b, b) or c.shape != (m, m) or m % b or b % 64
-            or len(store_names) != nt or len(pair_names) != nt):
+    if (linv.shape[-2:] != (b, b) or c.shape[-2:] != (m, m) or m % b
+            or b % 64 or len(store_names) != nt or len(pair_names) != nt):
         raise ValueError(f"panel_update: shapes linv {tuple(linv.shape)}, "
                          f"a21 {tuple(a21.shape)}, c {tuple(c.shape)}")
-    if any(t.stride(1) != 1 for t in (linv, a21, c)):
+    if any(t.stride(-1) != 1 for t in (linv, a21, c)):
         raise ValueError("panel_update: operands need unit column stride")
     esz = a21.element_size()
-    in_place = a21.data_ptr() % 16 == 0 and a21.stride(0) * esz % 16 == 0
+    in_place = (a21.data_ptr() % 16 == 0 and a21.stride(-2) * esz % 16 == 0
+                and (not batched or a21.stride(0) * esz % 16 == 0))
     p, (store_tab, codes, kinds, tc_items, simt_items, codes_h, kinds_h,
         tc_off, ns, nsimt) = _tables(
         tuple(pair_names), tuple(pair_quants), tuple(store_names),
         tuple(store_quants), a21.dtype, b, bool(rounding), in_place, dev)
     # the solve reads L11^-1 K-major by 16-byte loads
-    if linv.stride(0) != b or linv.data_ptr() % 16:
+    if (linv.stride(-2) != b or linv.data_ptr() % 16
+            or (batched and linv.stride(0) != b * b)):
         linv = linv.clone(memory_format=torch.contiguous_format)
     # scratch: the rounded incoming panel, one L21 copy per pair name
     # (codes of the name's type for the tensor cores, container values for
     # the CUDA cores; a "self" slot stays unused) and the copies'
-    # per-row-tile scales
-    slot_stride = m * b * esz
-    a_r = torch.empty((m, b), dtype=a21.dtype, device=dev)
+    # per-row-tile scales, m b values and nt scales a matrix
+    slot_stride = nbatch * m * b * esz
+    a_r = torch.empty((nbatch, m, b), dtype=a21.dtype, device=dev)
     lq = torch.empty((ns * slot_stride,), dtype=torch.uint8, device=dev)
-    alpha = torch.empty((ns, nt), dtype=torch.float32, device=dev)
+    alpha = torch.empty((ns, nbatch, nt), dtype=torch.float32, device=dev)
+
+    def bs(t):
+        return t.stride(0) if batched else 0
     with _build.on_device(dev):
         err = _fn(a21.dtype)(
-            linv.data_ptr(), linv.stride(0), a21.data_ptr(), a21.stride(0),
-            c.data_ptr(), c.stride(0), a_r.data_ptr(), lq.data_ptr(),
+            linv.data_ptr(), linv.stride(-2), bs(linv), a21.data_ptr(),
+            a21.stride(-2), bs(a21), c.data_ptr(), c.stride(-2), bs(c),
+            nbatch, a_r.data_ptr(), lq.data_ptr(),
             slot_stride, alpha.data_ptr(), store_tab.data_ptr(),
             codes.data_ptr(), kinds.data_ptr(),
             ctypes.cast(codes_h, ctypes.c_void_p),
@@ -228,3 +254,4 @@ def panel_update(linv, a21, c, *, store_names, store_quants, pair_names,
     return launch(linv, a21, c, store_names=store_names,
                   store_quants=store_quants, pair_names=pair_names,
                   pair_quants=pair_quants, rounding=rounding)[0]
+

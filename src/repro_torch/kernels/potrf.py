@@ -9,7 +9,9 @@ larger matrix needs no copy) and write a fresh or given ``out`` tile.
 Their plain versions are :func:`repro_torch.kernels.ref.potrf_ref` and
 :func:`~repro_torch.kernels.ref.tri_inv_ref`. ``tri_inv_leaf_batched``
 inverts a stack of tiles (such as :func:`diag_tiles` of a factor, read in
-place) in one launch, one CTA a tile, through the same kernel.
+place) in one launch, one CTA a tile, through the same kernel, and
+``potrf_leaf_batched`` factors a stack of tiles the same way (the K-FAC
+refactor's diagonal tiles of all its blocks at once).
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ from repro_torch.kernels import _build
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _FNS: dict = {}
 _LL, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-#: (A, lda, O, ldo, b, stream) and (L, ldl, tile stride, X, ldx, tile
-#: stride, b, tiles, stream)
-_ARGS = {"potrf": (_PTR, _LL, _PTR, _LL, _INT, _PTR),
+#: (A, lda, tile stride, O, ldo, tile stride, b, tiles, stream), the same
+#: for both
+_ARGS = {"potrf": (_PTR, _LL, _LL, _PTR, _LL, _LL, _INT, _INT, _PTR),
          "tri_inv": (_PTR, _LL, _LL, _PTR, _LL, _LL, _INT, _INT, _PTR)}
 
 
@@ -71,8 +73,8 @@ def potrf_leaf(a, *, out=None):
     tile that is not SPD gives NaN on and below the diagonal. ``out`` may
     be ``a``."""
     out = _check_tile(a, out, "potrf_leaf")
-    _launch("potrf", a, a.data_ptr(), a.stride(0), out.data_ptr(),
-            out.stride(0), a.shape[-1])
+    _launch("potrf", a, a.data_ptr(), a.stride(0), 0, out.data_ptr(),
+            out.stride(0), 0, a.shape[-1], 1)
     return out
 
 
@@ -99,16 +101,35 @@ def diag_tiles(l, b: int):
     return l.as_strided((n // b, b, b), (b * (ld + 1), ld, 1))
 
 
+def _check_stack(tiles, what):
+    if tiles.dim() != 3 or tiles.shape[0] == 0:
+        raise ValueError(f"{what}: needs (T, b, b) tiles, T > 0, got "
+                         f"{tuple(tiles.shape)}")
+    return _check_input(tiles[0], what)
+
+
+def potrf_leaf_batched(tiles):
+    """Lower Cholesky factors of a (T, b, b) stack of SPD tiles in ONE
+    launch, one CTA a tile, into a new contiguous (T, b, b) stack; the
+    tiles are read in place through their strides (row stride and tile
+    stride, unit column stride). Each tile's bits equal those of
+    :func:`potrf_leaf` on it; a tile that is not SPD gives NaN on and below
+    its diagonal and leaves the others alone."""
+    b = _check_stack(tiles, "potrf_leaf_batched")
+    ntiles = tiles.shape[0]
+    out = torch.empty((ntiles, b, b), dtype=tiles.dtype, device=tiles.device)
+    _launch("potrf", tiles, tiles.data_ptr(), tiles.stride(1),
+            tiles.stride(0), out.data_ptr(), b, b * b, b, ntiles)
+    return out
+
+
 def tri_inv_leaf_batched(tiles):
     """Inverses of a (T, b, b) stack of lower-triangular tiles in ONE
     launch, one CTA a tile, into a new contiguous (T, b, b) stack. The
     tiles are read in place through their strides (row stride and tile
     stride, unit column stride), so :func:`diag_tiles` of a factor needs
     no copy. Each tile's bits equal those of :func:`tri_inv_leaf` on it."""
-    if tiles.dim() != 3 or tiles.shape[0] == 0:
-        raise ValueError(f"tri_inv_leaf_batched: needs (T, b, b) tiles, "
-                         f"T > 0, got {tuple(tiles.shape)}")
-    b = _check_input(tiles[0], "tri_inv_leaf_batched")
+    b = _check_stack(tiles, "tri_inv_leaf_batched")
     ntiles = tiles.shape[0]
     out = torch.empty((ntiles, b, b), dtype=tiles.dtype, device=tiles.device)
     _launch("tri_inv", tiles, tiles.data_ptr(), tiles.stride(1),

@@ -34,6 +34,13 @@ the same sequential order (``csrc/simt_gemm.cuh``), so the SIMT tile and
 the k-split's column blocks, the only choices that follow N, move no bit.
 Which route ran is returned by :func:`launch` and counted by
 ``ops.QGEMM_ROUTES``.
+
+3-D operands are N products of one shape at once, (N, M, K) @
+(N, K, N') with each operand at a uniform batch stride, in one launch
+(K-FAC's whitening: a tree solve per block of every layer). They take the
+one-matrix call's plan, so matrix i's bits are those of :func:`qgemm` on
+it; the scale may be a float, one f32 on the card, or an (N,) f32 tensor
+there, one per matrix (a quantizing ladder's per-block scales).
 """
 from __future__ import annotations
 
@@ -50,10 +57,16 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
 _FNS: dict = {}
 _P, _L, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_double)
-_TC_ARGS = (_P, _L, _I, _P, _L, _I, _P, _L, _P, _L, _I, _I, _I, _D, _D, _P,
-            _I, _P)
-_SIMT_ARGS = (_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _P, _L, _P, _I, _I,
-              _I, _I, _I, _D, _D, _P, _I, _P)
+#: (A, lda, batch stride, a_mn, B, ldb, batch stride, b_mn, C, ldc, batch
+#: stride, O, ldo, batch stride, nbatch, M, N, K, scale, beta, scale_dev,
+#: its batch stride, has_c, stream)
+_TC_ARGS = (_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _I, _I,
+            _I, _I, _D, _D, _P, _L, _I, _P)
+#: (A, sam, sak, alay, batch stride, B, sbn, sbk, blay, batch stride, C,
+#: ldc, batch stride, O, ldo, batch stride, P, nbatch, M, N, K, kc, tile,
+#: scale, beta, scale_dev, its batch stride, has_c, stream)
+_SIMT_ARGS = (_P, _L, _L, _I, _L, _P, _L, _L, _I, _L, _P, _L, _L, _P, _L,
+              _L, _P, _I, _I, _I, _I, _I, _I, _D, _D, _P, _L, _I, _P)
 
 #: operand dtypes of the tensor-core route
 TC_DTYPES = (torch.float16, torch.bfloat16, torch.int8)
@@ -140,11 +153,13 @@ def k_split(K: int, tiles: int, target: int = TARGET_CTAS,
 
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, N: int, K: int, dtype, a_major, b_major,
-         acc=None) -> Plan:
+         acc=None, nbatch: int = 1) -> Plan:
     """The route of ``(M x K) @ (K x N)`` in ``dtype`` (accumulating in
-    ``acc``, default :func:`acc_dtype` of ``dtype``); ``a_major`` /
-    ``b_major`` are :func:`layout`'s verdicts on A and on B's (N, K)
-    view."""
+    ``acc``, default :func:`acc_dtype` of ``dtype``), or of ``nbatch`` such
+    products at once; ``a_major`` / ``b_major`` are :func:`layout`'s
+    verdicts on A and on B's (N, K) view. Only ``cols`` follows
+    ``nbatch``: the partial sums of all the batch's k-splits share
+    ``KSPLIT_SCRATCH_BYTES``."""
     if dtype in TC_DTYPES:
         ok = ("k",) if dtype == torch.int8 else ("k", "mn")
         sa, sb = a_major not in ok, b_major not in ok
@@ -164,7 +179,8 @@ def plan(M: int, N: int, K: int, dtype, a_major, b_major,
              "simt_narrow" if tile == SIMT_NARROW else "simt_tile")
     cols = N
     if chunks > 1:
-        per_col = chunks * max(M, 1) * (8 if acc == torch.float64 else 4)
+        per_col = nbatch * chunks * max(M, 1) * (8 if acc == torch.float64
+                                                 else 4)
         cols = min(N, max(wide[1], KSPLIT_SCRATCH_BYTES // per_col
                           // wide[1] * wide[1]))
     return Plan(route, tile, kc, chunks, cols=cols)
@@ -190,21 +206,26 @@ def _fn(dtype, od):
 
 
 def _major(t):
-    """:func:`layout` of a 2-D operand view (rows, k)."""
-    return layout(*t.shape, *t.stride(), t.element_size(),
+    """:func:`layout` of an operand view (rows, k), or of each matrix of
+    a batch (nbatch, rows, k): a batch stride off the 16-byte grid puts
+    every matrix but the first off it, so it counts as no layout."""
+    if t.dim() == 3 and t.shape[0] > 1 and (t.stride(0) * t.element_size()
+                                            ) % ALIGN:
+        return None, 0
+    return layout(*t.shape[-2:], *t.stride()[-2:], t.element_size(),
                   t.data_ptr() % ALIGN)
 
 
 def _k_major_copy(t):
-    """``t`` (rows, k) copied into a K-major buffer whose row stride is a
-    multiple of 16 bytes (the kernel's tensor map stops at k, so the
-    padding is never read)."""
-    rows, k = t.shape
+    """``t`` (rows, k), or a batch (nbatch, rows, k), copied into a
+    K-major buffer whose row stride is a multiple of 16 bytes (the
+    kernel's tensor map stops at k, so the padding is never read)."""
+    *lead, rows, k = t.shape
     vw = ALIGN // t.element_size()
-    buf = torch.empty((rows, _cdiv(max(k, 1), vw) * vw), dtype=t.dtype,
-                      device=t.device)
-    buf[:, :k].copy_(t)
-    return buf[:, :k]
+    buf = torch.empty((*lead, rows, _cdiv(max(k, 1), vw) * vw),
+                      dtype=t.dtype, device=t.device)
+    buf[..., :k].copy_(t)
+    return buf[..., :k]
 
 
 _LAY = {"k": 1, "mn": 2, None: 0}
@@ -216,14 +237,39 @@ _TILE_CODE = {SIMT_NARROW: 1, SIMT_MID: 2}
 def qgemm(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
           out_dtype=torch.float32, out=None):
     """``scale`` is a float, or a 0-d f32 tensor on the operands' device
-    that the kernel reads from device memory (no host sync)."""
+    that the kernel reads from device memory (no host sync); for 3-D
+    operands also an (N,) f32 tensor there, one a matrix."""
     return launch(a, b, scale, c=c, beta=beta, trans_b=trans_b,
                   out_dtype=out_dtype, out=out)[0]
 
 
+def _scale_arg(scale, dev, nbatch):
+    """``(device pointer or None, host value, batch stride)``."""
+    if torch.is_tensor(scale) and scale.dim() == 1 and scale.numel() > 1:
+        if (scale.shape != (nbatch,) or scale.dtype != torch.float32
+                or scale.device != dev):
+            raise TypeError(f"qgemm: a per-matrix scale must be ({nbatch},)"
+                            f" f32 on {dev}, got {tuple(scale.shape)} "
+                            f"{scale.dtype} on {scale.device}")
+        return scale.data_ptr(), 0.0, scale.stride(0)
+    ptr, val = _build.scalar_arg(scale, dev, "qgemm")
+    return ptr, val, 0
+
+
+def _bstride(t, batched):
+    return t.stride(0) if batched else 0
+
+
 def launch(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
            out_dtype=torch.float32, out=None):
-    """:func:`qgemm`, returning ``(out, plan)``."""
+    """:func:`qgemm`, returning ``(out, plan)``: one product (2-D
+    operands) or a batch of them (3-D)."""
+    if a.dim() != b.dim() or a.dim() not in (2, 3) or (
+            a.dim() == 3 and b.shape[0] != a.shape[0]):
+        raise ValueError(f"qgemm: operands of shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if a.dim() == 3 and a.shape[0] == 0:
+        raise ValueError("qgemm: an empty batch")
     dev, dt = a.device, a.dtype
     if dev.type != "cuda" or b.device != dev:
         raise ValueError(f"qgemm: needs CUDA operands on one device, got "
@@ -235,60 +281,64 @@ def launch(a, b, scale=1.0, *, c=None, beta=0.0, trans_b=False,
         raise TypeError(f"qgemm: {dt} operands take no {od} c")
     if out_dtype != od:
         raise TypeError(f"qgemm: {dt} operands give {od}, not {out_dtype}")
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"qgemm: operands of shapes {tuple(a.shape)}, "
-                         f"{tuple(b.shape)}")
-    bn = b if trans_b else b.T              # B as its (N, K) view
-    M, K = a.shape
-    N, Kb = bn.shape
+    batched = a.dim() == 3
+    nb = a.shape[0] if batched else 1
+    bn = b if trans_b else b.transpose(-1, -2)   # B as its (N, K) view
+    M, K = a.shape[-2:]
+    N, Kb = bn.shape[-2:]
     if K != Kb:
         raise ValueError(f"qgemm: shapes {tuple(a.shape)} @ "
-                         f"{tuple(bn.T.shape)}")
+                         f"{tuple(bn.transpose(-1, -2).shape)}")
+    shape = (nb, M, N) if batched else (M, N)
     for name, t in (("c", c), ("out", out)):
-        if t is not None and (t.shape != (M, N) or t.dtype != od
-                              or t.stride(1) != 1 or t.device != dev):
-            raise ValueError(f"qgemm: {name} must be ({M}, {N}) {od} with "
+        if t is not None and (t.shape != shape or t.dtype != od
+                              or t.stride(-1) != 1 or t.device != dev):
+            raise ValueError(f"qgemm: {name} must be {shape} {od} with "
                              f"unit column stride")
     if out is None:
-        out = torch.empty((M, N), dtype=od, device=dev)
+        out = torch.empty(shape, dtype=od, device=dev)
     elif out.data_ptr() in (a.data_ptr(), b.data_ptr()):
         raise ValueError("qgemm: out must not alias an operand")
     has_c = c is not None
-    scale_dev, scale = _build.scalar_arg(scale, dev, "qgemm")
+    scale_dev, scale, ssc = _scale_arg(scale, dev, nb)
     (am, lda), (bm, ldb) = _major(a), _major(bn)
-    p = plan(M, N, K, dt, am, bm, od)
+    p = plan(M, N, K, dt, am, bm, od, nb)
     with _build.on_device(dev):
         stream = _build.raw_stream(dev)
-        cargs = (c.data_ptr() if has_c else None, c.stride(0) if has_c else 0,
-                 out.data_ptr(), out.stride(0))
+        cargs = (c.data_ptr() if has_c else None,
+                 c.stride(-2) if has_c else 0,
+                 _bstride(c, batched) if has_c else 0,
+                 out.data_ptr(), out.stride(-2), _bstride(out, batched))
         if dt in TC_DTYPES:
             if p.stage_a:
                 a = _k_major_copy(a)
-                am, lda = "k", a.stride(0)
+                am, lda = "k", a.stride(-2)
             if p.stage_b:
                 bn = _k_major_copy(bn)
-                bm, ldb = "k", bn.stride(0)
+                bm, ldb = "k", bn.stride(-2)
             err = _fn(dt, od)(
-                a.data_ptr(), lda, int(am == "mn"), bn.data_ptr(), ldb,
-                int(bm == "mn"), *cargs, M, N, K, scale, float(beta),
-                scale_dev, int(has_c), stream)
+                a.data_ptr(), lda, _bstride(a, batched), int(am == "mn"),
+                bn.data_ptr(), ldb, _bstride(bn, batched), int(bm == "mn"),
+                *cargs, nb, M, N, K, scale, float(beta), scale_dev, ssc,
+                int(has_c), stream)
         else:
-            part = (torch.empty((p.chunks, M, p.cols), dtype=od, device=dev)
-                    if p.chunks > 1 else None)
+            part = (torch.empty((nb, p.chunks, M, p.cols), dtype=od,
+                                device=dev) if p.chunks > 1 else None)
             # one launch pair, or one a block of p.cols columns (offsets a
             # multiple of the wide tile keep every operand's alignment)
             esz, osz = a.element_size(), out.element_size()
-            cp, ldc, op, ldo = cargs
+            cp, ldc, sc, op, ldo, so = cargs
             for n0 in range(0, max(N, 1), max(p.cols, 1)):
                 err = _fn(dt, od)(
-                    a.data_ptr(), a.stride(0), a.stride(1), _LAY[am],
-                    bn.data_ptr() + n0 * bn.stride(0) * esz, bn.stride(0),
-                    bn.stride(1), _LAY[bm], cp and cp + n0 * osz, ldc,
-                    op + n0 * osz, ldo,
-                    None if part is None else part.data_ptr(), M,
+                    a.data_ptr(), a.stride(-2), a.stride(-1), _LAY[am],
+                    _bstride(a, batched),
+                    bn.data_ptr() + n0 * bn.stride(-2) * esz, bn.stride(-2),
+                    bn.stride(-1), _LAY[bm], _bstride(bn, batched),
+                    cp and cp + n0 * osz, ldc, sc, op + n0 * osz, ldo, so,
+                    None if part is None else part.data_ptr(), nb, M,
                     min(N, n0 + p.cols) - n0, K, p.kc,
                     _TILE_CODE.get(p.tile, 0), scale, float(beta),
-                    scale_dev, int(has_c), stream)
+                    scale_dev, ssc, int(has_c), stream)
                 if err:
                     break
     _build.check(err, "qgemm")

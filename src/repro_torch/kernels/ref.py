@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/ref.py`` for the kernels of the factor,
 solve and refinement path (``qgemm``, ``potrf_leaf``, ``tri_inv_leaf``,
 ``panel_update``, ``residual_fused``), of the tree engine
 (``trsm_leaf``, ``syrk_leaf``, ``syrk_packed``) and of the model zoo's
-prefill attention (``flash_attention``). They are what
+prefill attention (``flash_attention``), and the batched forms K-FAC
+runs (``*_batched_ref``: one plain call a matrix). They are what
 :mod:`repro_torch.kernels.ops` runs for a tensor on the CPU, and what the
 CUDA kernels are held against on the card. Each follows the reference's
 arithmetic step for step: the same casts, the same per-tile absmax and the
@@ -256,6 +257,56 @@ def panel_update_ref(linv, a21, c, *, store_names, store_quants,
         upd = torch.where(lower, upd, cur)
         c[j0:j0 + b, j0:j0 + b] = upd.to(c.dtype)
     return l21.to(a21.dtype), c
+
+
+
+# ---------------------------------------------------------------------------
+# batched forms (the reference's kernels under jax.vmap): one plain call a
+# matrix, so matrix i's result is the unbatched plain version's on it
+# ---------------------------------------------------------------------------
+def _per_matrix(scale, i):
+    """Matrix i's scale: a float, a 0-d tensor, or entry i of an (N,)
+    tensor."""
+    if torch.is_tensor(scale) and scale.dim() == 1 and scale.numel() > 1:
+        return scale[i]
+    return scale
+
+
+def potrf_batched_ref(tiles):
+    """:func:`potrf_ref` of each tile of a (N, b, b) stack."""
+    return torch.stack([potrf_ref(t) for t in tiles])
+
+
+def tri_inv_batched_ref(tiles):
+    """:func:`tri_inv_ref` of each tile of a (N, b, b) stack."""
+    return torch.stack([tri_inv_ref(t) for t in tiles])
+
+
+def qgemm_batched_ref(a, b, *, trans_b=False, scale=1.0, c=None, beta=0.0,
+                      out_dtype=torch.float32):
+    """:func:`qgemm_ref` of each of N products, (N, M, K) @ (N, K, N') (or
+    (N, N', K) with ``trans_b``); ``scale`` a float, a 0-d tensor or one a
+    matrix, (N,)."""
+    return torch.stack([
+        qgemm_ref(a[i], b[i], trans_b=trans_b, scale=_per_matrix(scale, i),
+                  c=None if c is None else c[i], beta=beta,
+                  out_dtype=out_dtype) for i in range(a.shape[0])])
+
+
+def trsm_batched_ref(b, l, *, side="left", trans=False):
+    """:func:`trsm_ref` of each of N systems, ``b`` (N, n, k), ``l``
+    (N, n, n)."""
+    return torch.stack([trsm_ref(b[i], l[i], side=side, trans=trans)
+                        for i in range(b.shape[0])])
+
+
+def panel_update_batched_ref(linv, a21, c, **names):
+    """:func:`panel_update_ref` of each of N panels, ``linv`` (N, b, b),
+    ``a21`` (N, m, b), ``c`` (N, m, m); returns new ``(l21, c)`` stacks."""
+    outs = [panel_update_ref(linv[i], a21[i], c[i], **names)
+            for i in range(a21.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
 
 
 # ---------------------------------------------------------------------------

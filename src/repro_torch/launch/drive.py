@@ -4,7 +4,10 @@
 reference computed by the parent process) and ``chip_smoke.py``'s ``dist``
 phase (4 ranks sharing one card) drive the distributed factor, solve,
 mesh-mode serving and the tuner's distributed grid through
-:func:`run_cases`, which every rank runs. Each case builds its inputs on
+:func:`run_cases`, which every rank runs; ``tests/test_torch_train.py``
+and ``chip_smoke.py``'s ``train_dp`` phase drive the int8 error-feedback
+all-reduce (``ef_allreduce``) and the reference's mini data-parallel
+trainer on it (``train_dp``) the same way. Each case builds its inputs on
 the rank from a seed (:func:`spd_matrix`) or takes the caller's arrays,
 calls the port's entry points as a user would, and
 returns, on rank 0, what the caller checks: results, times and, per rank,
@@ -19,6 +22,7 @@ import dataclasses
 import math
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -110,7 +114,7 @@ def _per_rank(obj) -> list:
 
 
 def _counters() -> dict:
-    return {"launches": dict(ops.LAUNCHES),
+    return {"launches": dict(ops.LAUNCHES), "batched": dict(ops.BATCHED),
             "qgemm_routes": dict(ops.QGEMM_ROUTES),
             "wire": copy.deepcopy(D.WIRE)}
 
@@ -432,8 +436,61 @@ def tune(mesh, device, data, *, smoke=True, fake_timer=False,
     return {"payload": payload, "wall_s": wall, "ranks": ranks}
 
 
+def ef_allreduce(mesh, device, data, *, rounds=1):
+    """``train.compress.ef_allreduce_mean`` ``rounds`` times, rank r
+    taking row r of ``data["grad"]`` as its gradient every round and
+    carrying its residual (from ``data["residual"]``'s row r). Rank 0
+    returns every rank's reduced gradient and residual (numpy)."""
+    from repro_torch.train.compress import ef_allreduce_mean
+    group = mesh.get_group("model")
+    rank = dist.get_rank(group)
+    g = torch.as_tensor(data["grad"][rank], device=device)
+    res = torch.as_tensor(data["residual"][rank], device=device)
+    for _ in range(rounds):
+        red, new = ef_allreduce_mean({"w": g}, {"w": res}, group)
+        res = new["w"]
+    ranks = _per_rank({"reduced": red["w"].cpu().numpy(),
+                       "residual": res.cpu().numpy()})
+    return ranks if rank == 0 else None
+
+
+def train_dp(mesh, device, data, *, steps=600, lr=0.05, seed=0):
+    """The reference's mini data-parallel trainer
+    (``tests/test_train.py:test_ef_compression_dp_trainer``): least
+    squares ``y = x w_true`` (16 x 4) on 64 rows, each rank its own
+    64 / world rows, gradients averaged by ``ef_allreduce_mean`` with each
+    rank's residual, ``steps`` steps of plain gradient descent. Rank 0
+    returns max|w - w_true|, the loss and the wall seconds."""
+    from repro_torch.train.compress import ef_allreduce_mean
+    group = mesh.get_group("model")
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    rng = np.random.default_rng(seed)
+    w_true = rng.standard_normal((16, 4)).astype(np.float32)
+    X = rng.standard_normal((64, 16)).astype(np.float32)
+    Y = X @ w_true
+    rows = slice(rank * 64 // size, (rank + 1) * 64 // size)
+    x = torch.as_tensor(X[rows], device=device)
+    y = torch.as_tensor(Y[rows], device=device)
+    w = torch.zeros((16, 4), device=device)
+    res = torch.zeros((16, 4), device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        wg = w.clone().requires_grad_()
+        loss = torch.mean((x @ wg - y) ** 2)
+        g, = torch.autograd.grad(loss, wg)
+        red, new = ef_allreduce_mean({"w": g}, {"w": res}, group)
+        w, res = w - lr * red["w"], new["w"]
+    _sync(device)
+    wall = time.perf_counter() - t0
+    err = float((w.cpu() - torch.as_tensor(w_true)).abs().max())
+    return ({"err": err, "loss": float(loss.detach()), "wall_s": wall,
+             "steps": steps} if rank == 0 else None)
+
+
 CASES = {"gloo": gloo, "factor": factor, "solve": solve, "serve": serve,
-         "engine_spmd": engine_spmd, "tune": tune, "imports": imports}
+         "engine_spmd": engine_spmd, "tune": tune, "imports": imports,
+         "ef_allreduce": ef_allreduce, "train_dp": train_dp}
 
 
 def run_cases(cases, device="cuda", data=None) -> list | None:

@@ -2,10 +2,13 @@
 
 Modules:
   common.py      — ModelConfig, rms_norm, RoPE, MLPs, init
-  attention.py   — GQA attention: flash-attention kernel for prefill,
-                   grouped product against the KV cache for decode
+  common.py also holds cross_entropy, the LM loss
+  attention.py   — GQA attention: flash-attention kernel for train and
+                   prefill (FlashCausal: its gradient recomputes the
+                   reference's scan), grouped product against the KV
+                   cache for decode
   transformer.py — init_params, forward (train / prefill / decode),
-                   pad_caches; the dense family only
+                   loss_fn, pad_caches; the dense family only
 
 The other families (vlm, audio, moe, rwkv, hybrid) are ROADMAP A12.
 """

@@ -9,6 +9,14 @@ plain version, which walks the reference scan's blocks (all query rows at
 once, key chunks of ``min(chunk, T)``). Decode is a grouped product and a
 softmax against the cache, in f32, in plain torch as in the reference.
 
+The causal attention of train and prefill is a ``torch.autograd.Function``
+(:class:`FlashCausal`): its forward is the kernel call, and its backward
+recomputes the reference's online-softmax scan (:func:`chunked_causal`,
+``repro/models/attention.py:_chunked_causal``) key chunk by key chunk in
+plain torch and differentiates it, which is what XLA does with the
+reference's checkpointed scan. The reference has no backward kernel, so
+none is written here.
+
 Query head ``h`` reads kv head ``h // G`` (``h = kv * G + g``), so
 repeated keys and values are never materialized. No ``sharder`` argument:
 the model's mesh path (DTensor) is ROADMAP A12.
@@ -31,6 +39,65 @@ def attn_params(cfg: ModelConfig, *, generator, device):
             "wk": _init((d, KV * hd), cfg.pdt, **kw),
             "wv": _init((d, KV * hd), cfg.pdt, **kw),
             "wo": _init((H * hd, d), cfg.pdt, **kw)}
+
+
+def chunked_causal(q, k, v, *, chunk):
+    """The reference's online-softmax causal attention
+    (``repro/models/attention.py:_chunked_causal``), op for op in plain
+    torch: q [B, S, KV, G, hd], k/v [B, T, KV, hd], key chunks of
+    ``min(chunk, T)``, f32 scores and state, the output in q's dtype."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    chunk = min(chunk, T)
+    assert T % chunk == 0, (T, chunk)
+    f32 = torch.float32
+    qf = q.to(f32) * (hd ** -0.5)
+    m = torch.full((B, S, KV, G), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, S, KV, G), dtype=f32, device=q.device)
+    acc = torch.zeros((B, S, KV, G, hd), dtype=f32, device=q.device)
+    qpos = torch.arange(S, device=q.device)
+    for ci in range(T // chunk):
+        k_c = k[:, ci * chunk:(ci + 1) * chunk].to(f32)
+        v_c = v[:, ci * chunk:(ci + 1) * chunk].to(f32)
+        s = torch.einsum("bskgh,bckh->bskgc", qf, k_c)
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bskgc,bckh->bskgh", p,
+                                                   v_c)
+        m = m_new
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+
+
+class FlashCausal(torch.autograd.Function):
+    """Causal GQA attention, q [B, S, H, hd], k/v [B, T, KV, hd] ->
+    [B, S, H, hd]. Forward: ``ops.flash_attention_bshd`` (the kernel on
+    the card, its plain version on the CPU). Backward: the gradient of
+    :func:`chunked_causal` on the saved inputs, recomputed chunk by
+    chunk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return ops.flash_attention_bshd(q, k, v, causal=True, bq=q.shape[1],
+                                        bk=min(chunk, k.shape[1]))
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        with torch.enable_grad():
+            out = chunked_causal(q.reshape(B, S, KV, H // KV, hd), k, v,
+                                 chunk=ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(
+                out, (q, k, v), dout.reshape(out.shape))
+        return dq, dk, dv, None
 
 
 def _decode_attn(q, k_cache, v_cache, *, pos):
@@ -77,7 +144,7 @@ def attention(x, p, cfg: ModelConfig, *, pos=None, cache=None, chunk=1024):
         if T % blk:
             raise ValueError(f"attention: sequence {T} is no multiple of "
                              f"the chunk {blk}")
-        out = ops.flash_attention_bshd(q, k, v, causal=True, bq=S, bk=blk)
+        out = FlashCausal.apply(q, k, v, blk)
         kv = {"k": k, "v": v}
     else:
         k_cache, v_cache = cache["k"], cache["v"]

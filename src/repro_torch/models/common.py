@@ -4,8 +4,8 @@ Counterpart of ``repro/models/common.py``. The reference's ``Sharder`` /
 ``NO_SHARD`` (GSPMD sharding constraints under a mesh) are left out, and
 so none of the functions here takes a ``sharder`` argument: their mesh
 counterpart (model weights and activations as DTensors) is ROADMAP A12;
-the distributed solver (A9, ``core/distributed.py``) shards no model. ``cross_entropy`` belongs to
-training and is not ported yet either.
+the distributed solver (A9, ``core/distributed.py``) shards no model.
+``cross_entropy`` is the training loss (``transformer.loss_fn``).
 
 Each function repeats the reference's casts in the reference's order:
 ``rms_norm`` takes its statistics in f32 and normalizes in ``x.dtype``,
@@ -150,6 +150,19 @@ def _init(shape, dtype, *, generator, device, scale=None):
 
 
 init_dense = _init
+
+
+def cross_entropy(logits, labels, *, z_loss=1e-4):
+    """Standard LM loss with z-regularization, in f32; labels -100 are
+    masked: ``sum((lse - logit[label] + z_loss lse^2) mask) /
+    max(sum(mask), 1)``."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = labels >= 0
+    safe = labels.clamp_min(0)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) + z_loss * torch.square(lse)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
 
 
 def mlp_params(d, f, kind, dtype, *, generator, device):

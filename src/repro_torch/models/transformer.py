@@ -14,7 +14,11 @@ per-layer dicts where the reference stacks them ``[L, ...]`` for
 reference pytree into this form.
 
 Execution modes:
-  train   — full sequence, no KV caches
+  train   — full sequence, no KV caches; differentiable (``loss_fn``):
+            with ``cfg.remat`` each layer runs under
+            ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+            the reference's per-layer ``jax.checkpoint``, so the backward
+            pass recomputes a layer's activations from its input
   prefill — full sequence, returns per-layer caches of length S
   decode  — one token at position ``pos`` against caller-provided caches,
             which are updated IN PLACE (the reference returns new arrays)
@@ -27,12 +31,15 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (ModelConfig, _init, matmul,
-                                       mlp_apply, mlp_params, rms_norm)
+from repro_torch.models.common import (ModelConfig, _init, cross_entropy,
+                                       matmul, mlp_apply, mlp_params,
+                                       rms_norm)
 
 FAMILY_ITEM = "ROADMAP A12 (model zoo: the non-dense families)"
+AUX_LOSS_W = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -118,7 +125,11 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     main = caches["main"] if decode else None
     ks, vs = [], []
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, p_l in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_train_block, x, p_l, cfg, use_reentrant=False)
+            continue
         c_l = ({"k": main["k"][i], "v": main["v"][i]} if decode else None)
         x, kv = _tf_block(x, p_l, cfg, pos=pos if decode else None,
                           cache=c_l)
@@ -131,6 +142,10 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     if decode:
         return logits, aux, caches
     return logits, aux, {"main": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _train_block(x, p, cfg: ModelConfig):
+    return _tf_block(x, p, cfg)[0]
 
 
 def pad_caches(caches, to_len: int):
@@ -153,3 +168,16 @@ def pad_caches(caches, to_len: int):
         return leaf
 
     return pad(None, caches)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def loss_fn(params, batch, cfg: ModelConfig):
+    """``(ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux})`` of the train
+    forward, ``batch`` holding ``tokens`` and ``labels`` [B, S]. The dense
+    family only (its aux is 0)."""
+    logits, aux, _ = forward(params, batch, cfg, mode="train")
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    ce = cross_entropy(logits, labels)
+    return ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux}

@@ -894,3 +894,244 @@ def test_qgemm_device_scale(card):
     want = tref.qgemm_ref(a, b, trans_b=True, scale=s, c=c64, beta=1.0,
                           out_dtype=torch.float64)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# batched forms (K-FAC's refactor and whitening): the plain versions on the
+# CPU against the reference's oracles under jax.vmap, the kernels on the
+# card against one launch a matrix (bitwise) and the plain versions
+# ---------------------------------------------------------------------------
+def _spd_stack(rng, nb, n, scales):
+    m = rng.uniform(-1, 1, (nb, n, n))
+    a = (m + m.transpose(0, 2, 1)) / 2 + n * np.eye(n)
+    return (a * np.asarray(scales)[:, None, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel", ["potrf", "tri_inv", "qgemm", "panel"])
+def test_batched_plain_versions(jx, kernel):
+    """Each *_batched_ref is its unbatched plain version a matrix (bitwise)
+    and agrees with the reference's oracle under jax.vmap at the unbatched
+    tests' tolerances (potrf/tri_inv: test_potrf_ref's and
+    test_tri_inv_ref's; qgemm with a per-matrix scale: rtol 2e-5; panel:
+    one unit of the coarsest level's grid, as test_panel_update_ref)."""
+    import functools
+
+    import jax
+    rng = np.random.default_rng(7)
+    j = jx.jnp.asarray
+    if kernel in ("potrf", "tri_inv"):
+        a = _spd_stack(rng, 3, 128, [1.0, 1e3, 1e-3])
+        if kernel == "tri_inv":
+            a = np.stack([np.linalg.cholesky(x.astype(np.float64))
+                          for x in a]).astype(np.float32)
+        fn = tref.potrf_batched_ref if kernel == "potrf" else \
+            tref.tri_inv_batched_ref
+        one = tref.potrf_ref if kernel == "potrf" else tref.tri_inv_ref
+        rfn = jx.ref.potrf_ref if kernel == "potrf" else jx.ref.tri_inv_ref
+        got = fn(torch.from_numpy(a))
+        for i in range(3):
+            assert torch.equal(got[i], one(torch.from_numpy(a[i])))
+        want = np.asarray(jax.vmap(rfn)(j(a)))
+        scale = np.abs(want).reshape(3, -1).max(axis=1)[:, None, None]
+        np.testing.assert_allclose(got.numpy() / scale, want / scale,
+                                   rtol=0, atol=2e-5)
+        return
+    if kernel == "qgemm":
+        a = _rand(rng, (4, 64, 96))
+        b = _rand(rng, (4, 80, 96))
+        c = _rand(rng, (4, 64, 80))
+        s = np.array([0.5, -2.0, 1e-3, 7.0], np.float32)
+        got = tref.qgemm_batched_ref(
+            torch.from_numpy(a), torch.from_numpy(b), trans_b=True,
+            scale=torch.from_numpy(s), c=torch.from_numpy(c), beta=-1.0)
+        for i in range(4):
+            assert torch.equal(got[i], tref.qgemm_ref(
+                torch.from_numpy(a[i]), torch.from_numpy(b[i]), trans_b=True,
+                scale=float(s[i]), c=torch.from_numpy(c[i]), beta=-1.0))
+        want = jax.vmap(lambda x, y, z, w: jx.ref.qgemm_ref(
+            x, y, trans_b=True, scale=w, c=z, beta=-1.0))(
+                j(a), j(b), j(c), j(s))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+        return
+    linv, a21, c, kw = _panel_case(("int8", "f32"), 2)
+    sc = np.array([1.0, 1e3, 1e-3], np.float32)[:, None, None]
+    linvs = np.stack([linv] * 3)
+    a21s, cs = a21[None] * sc, c[None] * sc
+    got = tref.panel_update_batched_ref(
+        torch.from_numpy(linvs), torch.from_numpy(a21s),
+        torch.from_numpy(cs), **kw)
+    for i in range(3):
+        one = tref.panel_update_ref(
+            torch.from_numpy(linv), torch.from_numpy(a21s[i]),
+            torch.from_numpy(cs[i]), **kw)
+        assert torch.equal(got[0][i], one[0]) and torch.equal(got[1][i],
+                                                              one[1])
+    fn = functools.partial(jx.ref.panel_update_ref, **kw)
+    wl, wc = jax.vmap(fn)(j(linvs), j(a21s), j(cs))
+    for g, w in ((got[0], wl), (got[1], wc)):
+        w = np.asarray(w)
+        scale = np.abs(w).reshape(3, -1).max(axis=1)[:, None, None]
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, rtol=0,
+                                   atol=1 / 127)
+
+
+def test_batched_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError):
+        potrf.potrf_leaf_batched(torch.eye(128)[None])
+    with pytest.raises(ValueError):
+        qgemm.qgemm(torch.eye(64)[None], torch.eye(64)[None])
+    linv, a21, c, kw = _panel_case(("f32",), 2)
+    with pytest.raises(ValueError):
+        panel.panel_update(torch.from_numpy(linv)[None],
+                           torch.from_numpy(a21)[None],
+                           torch.from_numpy(c)[None], **kw)
+
+
+def test_ops_stacks_run_the_batched_plain_versions():
+    """On the CPU, ops given a stack (3-D operands) runs the batched plain
+    version (bitwise) and counts no launch; the right trsm takes no
+    stack."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_spd_stack(rng, 3, 128, [1.0, 1e3, 1e-3]))
+    ops.reset_launches()
+    l = ops.potrf(a)
+    assert torch.equal(l, tref.potrf_batched_ref(a))
+    assert torch.equal(ops.tri_inv(l), tref.tri_inv_batched_ref(l))
+    x = torch.from_numpy(_rand(rng, (3, 128, 40)))
+    s = torch.tensor([0.5, -2.0, 3.0])
+    assert torch.equal(ops.qgemm(l, x, s, c=x, beta=1.0),
+                       tref.qgemm_batched_ref(l, x, scale=s, c=x, beta=1.0))
+    for trans in (False, True):
+        assert torch.equal(ops.trsm(x, l, side="left", trans=trans),
+                           tref.trsm_batched_ref(x, l, trans=trans))
+    with pytest.raises(NotImplementedError):
+        ops.trsm(x.mT, l)
+    linv, a21, c, kw = _panel_case(("int8", "f32"), 2)
+    stack = [torch.from_numpy(np.stack([v] * 2)) for v in (linv, a21, c)]
+    want = tref.panel_update_batched_ref(*stack, **kw)
+    got = ops.panel_update(*stack, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for counts in (ops.LAUNCHES, ops.BATCHED, ops.TILES):
+        assert set(counts.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+@pytest.mark.parametrize("b", [64, 128, 256, 512])
+def test_potrf_leaf_batched_kernel(card, b, dt):
+    """potrf_leaf_batched over the diagonal tiles of a stack, read in
+    place: each tile bitwise one potrf_leaf launch on it, a NaN tile
+    (not SPD) leaving the others alone, and within test_potrf_tri_inv_
+    kernels' tolerance of the plain version."""
+    dtype = {"f32": torch.float32, "f64": torch.float64}[dt]
+    rng = np.random.default_rng(b)
+    a = torch.from_numpy(_spd_stack(rng, 5, b, [1, 1e3, 1e-3, 1, 7])).to(
+        card, dtype)
+    big = torch.zeros((5, b + 64, b + 64), dtype=dtype, device=card)
+    big[:, 32:32 + b, 64:64 + b] = a
+    tiles = big[:, 32:32 + b, 64:64 + b]
+    got = potrf.potrf_leaf_batched(tiles)
+    for i in range(5):
+        assert torch.equal(got[i], potrf.potrf_leaf(tiles[i]))
+    want = tref.potrf_batched_ref(a)
+    for i in range(5):
+        s = float(want[i].abs().max())
+        tol = 3e-4 if dt == "f32" else 1e-12
+        torch.testing.assert_close(got[i] / s, want[i] / s, rtol=0, atol=tol)
+    tiles[2] = -tiles[2]
+    bad = potrf.potrf_leaf_batched(tiles)
+    assert bool(torch.isnan(bad[2].diagonal()).all())
+    for i in (0, 1, 3, 4):
+        assert torch.equal(bad[i], got[i])
+
+
+_BATCHED_PANEL = [(("bf16", "f32"), 3, 128), (("f16", "f16", "f32"), 3, 128),
+                  (("int8", "f32"), 2, 256), (("f32",), 2, 128),
+                  (("f16", "f32"), 2, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("levels,nt,b", _BATCHED_PANEL)
+def test_panel_update_batched_kernel(card, levels, nt, b):
+    """panel_update on panel 0 of a (N, n, n) working stack
+    (blocks at scales 1, 1e3, 1e-3: a scale taken across the batch would
+    move the small blocks' grids): each matrix bitwise the one-matrix
+    launch on a copy, within one grid unit of the plain version, and
+    PANEL_ROUTES counting every matrix's pairs."""
+    cfg = PrecisionConfig(levels=levels, leaf=b)
+    meta = build_plan((nt + 1) * b, cfg).panel_meta(0)
+    kw = dict(store_names=meta.store_names, store_quants=meta.store_quants,
+              pair_names=meta.pair_names, pair_quants=meta.pair_quants)
+    rng = np.random.default_rng(nt * b)
+    n = (nt + 1) * b
+    w = torch.from_numpy(_spd_stack(rng, 3, n, [1, 1e3, 1e-3])).to(card)
+    lpp = torch.stack([tref.potrf_ref(w[i, :b, :b]) for i in range(3)])
+    linv = torch.stack([tref.tri_inv_ref(x) for x in lpp])
+    singles = []
+    for i in range(3):
+        wi = w[i].clone()
+        panel.panel_update(linv[i], wi[b:, :b], wi[b:, b:], **kw)
+        singles.append(wi)
+    ref_l, ref_c = tref.panel_update_batched_ref(linv, w[:, b:, :b],
+                                                 w[:, b:, b:], **kw)
+    ops.reset_launches()
+    ops.panel_update(linv, w[:, b:, :b], w[:, b:, b:], **kw)
+    assert ops.LAUNCHES["panel_update"] == 1 == ops.BATCHED["panel_update"]
+    pairs = nt * (nt + 1) // 2
+    assert sum(ops.PANEL_ROUTES.values()) == 3 * pairs
+    unit = _GRID[levels[0]]
+    for i in range(3):
+        assert torch.equal(w[i], singles[i])
+        for got, want in ((w[i, b:, :b], ref_l[i]), (w[i, b:, b:], ref_c[i])):
+            s = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=unit * s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,trans_b,n,a_mn", [
+    ("f32", False, 256, False), ("f32", True, 2048, False),
+    ("f32", False, 16, False), ("bf16", False, 256, False),
+    ("bf16", True, 300, False), ("f16", False, 2048, False),
+    ("int8", True, 256, False), ("int8", False, 256, False),
+    ("f32", True, 40, False), ("f32", False, 256, True),
+    ("f32", False, 2048, True), ("f32", False, 16, True),
+    ("bf16", False, 256, True), ("f16", True, 2048, True),
+    ("int8", False, 256, True)])
+def test_qgemm_batched_kernel(card, dt, trans_b, n, a_mn):
+    """qgemm over a stack of N = 5 products with a per-matrix scale, on
+    the route each layout takes (MN-major int8 operands staged; ``a_mn``:
+    A the transpose of a K-major stack, as the whitening's back sweep
+    passes its inverses and L21^T): each product bitwise the one-matrix
+    call (with its scale as a float) and within test_qgemm_kernel's
+    tolerance of the plain version (int8 bitwise)."""
+    td = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f16": torch.float16, "int8": torch.int8}[dt]
+    g = torch.Generator(device=card).manual_seed(n)
+    N, M, K = 5, 256, 256 if dt != "f32" or n > 16 else 1024
+
+    def operand(shape):
+        x = torch.randn(shape, generator=g, device=card)
+        return (x * 40).round().clamp(-127, 127).to(td) if dt == "int8" \
+            else x.to(td)
+    a = operand((N, K, M)).mT if a_mn else operand((N, M, K))
+    b = operand((N, n, K) if trans_b else (N, K, n))
+    c = torch.randn((N, M, n), generator=g, device=card)
+    s = torch.tensor([0.5, -2.0, 1e-3, 7.0, 1.0], device=card)
+    ops.reset_launches()
+    got = ops.qgemm(a, b, s, c=c, beta=-1.0, trans_b=trans_b)
+    assert ops.LAUNCHES["qgemm"] == 1 == ops.BATCHED["qgemm"]
+    if a_mn:
+        route = "tc_staged" if dt == "int8" else "tc" if td in \
+            qgemm.TC_DTYPES else None
+        assert route is None or ops.QGEMM_ROUTES[route] == 1
+    for i in range(N):
+        one = qgemm.qgemm(a[i], b[i], float(s[i]), c=c[i], beta=-1.0,
+                          trans_b=trans_b)
+        assert torch.equal(got[i], one)
+    want = tref.qgemm_batched_ref(a, b, trans_b=trans_b, scale=s, c=c,
+                                  beta=-1.0)
+    if dt == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-4 * K ** .5)

@@ -122,6 +122,21 @@ def test_ksplit_scratch_is_capped_in_column_blocks(M, K, acc):
     assert qgemm.plan(256, 16384, 8192, torch.float32, "k", "k").cols == 2048
 
 
+@pytest.mark.parametrize("nbatch", [2, 5, 144])
+def test_ksplit_columns_shared_by_the_batch(nbatch):
+    """A batched k-split keeps the one-matrix plan but for its column
+    blocks: the partial sums of all nbatch products fit
+    KSPLIT_SCRATCH_BYTES."""
+    one = qgemm.plan(256, 16384, 8192, torch.float32, "k", "k")
+    p = qgemm.plan(256, 16384, 8192, torch.float32, "k", "k", None, nbatch)
+    assert (p.route, p.tile, p.kc, p.chunks) == (one.route, one.tile,
+                                                 one.kc, one.chunks)
+    wide = qgemm.SIMT_WIDE[torch.float32][1]
+    assert p.cols % wide == 0 and p.cols <= one.cols
+    assert (nbatch * p.chunks * 256 * p.cols * 4 <= qgemm.KSPLIT_SCRATCH_BYTES
+            or p.cols == wide)
+
+
 @pytest.mark.parametrize("block", [64, 128])
 def test_syrk_leaf_chunks_are_the_shared_k_split(block):
     """syrk_leaf's chunks come from qgemm.k_split over the triangle's
