@@ -150,7 +150,8 @@ result line. Phases:
    trailing updates gave 0.55 to 0.61 there on the CPU at n = 2048), its
    upper triangle zero, each rank's
    bytes by collective and dtype as ``ShardedPlan.comm_name`` /
-   ``comm_quant`` prescribe, each blocked rank's launches as the schedule
+   ``comm_quant`` prescribe (``repro_torch.audit.conformance
+   .wire_expectation``), each blocked rank's launches as the schedule
    and its 16-bit and int8 trailing updates on the ``tc`` route;
    ``dist_cholesky_solve`` with 16 right-hand sides for bf16_f32,
    f16x3_f32 and int8_f32, its digits within 0.3 of the single-device
@@ -169,6 +170,27 @@ result line. Phases:
    share, its model time on ``PEAK_FLOPS``) and the blocked plan's dot
    FLOPs, beside the ``path`` and ``tree_path`` lines' ``factor_ms``;
    ``PEAK_FLOPS`` must equal the card's rates on an SXM card.
+   ``audit``: the precision-conformance audit (``repro_torch.audit``) of
+   the card's launches: one blocked factor at n = 16384 for pure_f32,
+   bf16_f32, f16x3_f32 and int8_f32, whose products' FLOPs by name, from
+   the names each ``panel_update`` launch was given, must equal the plan's
+   exactly, every 16-bit and int8 pair of the f32 container on the tensor
+   cores and every other pair on the CUDA cores, panel by panel, and the
+   leaves in f32; bf16_f32's two solve sweeps (every ``qgemm`` in f32 on a
+   ``simt_*`` route) and two refinement sweeps (every ``residual_fused``
+   in f64). All of it under torch.profiler with one small call of each
+   other kernel, for the resource table: one row a compiled kernel
+   (``cuobjdump --dump-resource-usage``: static shared memory,
+   registers, local memory; the library's own list, ``smem_table``: the
+   dynamic shared memory its launcher passes; CUPTI: the launches' shared
+   memory, which must be the table's), every compiled kernel within
+   232,448 B and 255 registers, launched or not. Then the sources' static
+   checks (accumulator types, the launch plans' index bounds) and the two
+   card-route mutants, which must be caught through the route counts:
+   one 16-bit pair sent to the f32 name (named by its tile), and one
+   16-bit pair's work dispatched to the CUDA cores under its pristine
+   name (named by its panel, the name checks silent); the phase's wall
+   seconds and the seconds of each of its parts.
 7. ``breakdown``: device time by kernel inside one factor and one
    16-column solve of f16x3_f32 at n = 16384, blocked and tree
    (torch.profiler), and the card's busy share of the wall time; every
@@ -2608,6 +2630,123 @@ def census_phase(lines, rates, kind):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: the precision-conformance audit on the card
+# ---------------------------------------------------------------------------
+AUDIT_LADDERS = ("pure_f32", "bf16_f32", "f16x3_f32", "int8_f32")
+#: what the audit phase must launch: the main path's five kernels audited,
+#: and the other four once each for the resource table
+AUDIT_KERNELS = ("potrf_leaf", "tri_inv_leaf", "qgemm", "panel_update",
+                 "residual_fused", "trsm_leaf", "syrk_leaf", "syrk_packed",
+                 "flash_attention")
+
+
+def _audit_other_kernels(gen, dev="cuda"):
+    """One small call of each kernel off the blocked path, on each of its
+    type routes (and qgemm's tensor-core route, which the blocked path
+    does not take): their launches' shared memory for the resource
+    table."""
+    from repro_torch.kernels import ops
+    l = (torch.rand((256, 256), generator=gen, device=dev).tril(-1)
+         + 16 * torch.eye(256, device=dev))
+    for m in (8192, 256):               # trsm_leaf's wide and split plans
+        ops.trsm(torch.randn((m, 256), generator=gen, device=dev), l)
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int8):
+        a = torch.randn((512, 1024), generator=gen, device=dev)
+        a = (a * 20).to(dt) if dt == torch.int8 else a.to(dt)
+        c = torch.zeros((512, 512), device=dev)
+        ops.syrk(c, a)
+        ops.syrk(c, a, packed=True)
+        if dt != torch.float32:
+            ops.qgemm(a, a, trans_b=True)
+    for dt, hd in ((torch.bfloat16, 256), (torch.float16, 128),
+                   (torch.float32, 64)):
+        q = torch.randn((1, 512, 8, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((1, 512, 1, hd), generator=gen, device=dev).to(dt)
+        ops.flash_attention_bshd(q, k, k)
+
+
+def audit_phase(kind, smi):
+    """The precision-conformance audit of the card's launches
+    (``repro_torch.audit``): the launch audits of the blocked factor at
+    N_MAIN for AUDIT_LADDERS (every product's FLOPs by name against the
+    plan, every 16-bit and int8 pair of an f32 container on the tensor
+    cores and every other on the CUDA cores, the leaves in the high
+    dtype), of bf16_f32's solve (every qgemm wide, on the CUDA cores) and
+    refinement (f64 residuals), all under torch.profiler with one small
+    call of each other kernel; the resource table, one row a compiled
+    kernel (cuobjdump: static shared memory, registers, local memory; the
+    launchers' own list: dynamic shared memory; CUPTI: the launches'
+    shared memory, which must be the table's) against 232,448 B and 255
+    registers; the kernel sources' static checks; and the card-route
+    mutants (a pair's name, a pair's dispatch), which must be caught and
+    localized. ``parts_s`` times each part of the phase."""
+    from repro_torch.audit import kernelaudit, launchaudit, selftest
+    from repro_torch.core.precision import PAPER_CONFIGS
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(950)
+    checks, parts = [], {}
+
+    def work():
+        t = time.perf_counter()
+        for name in AUDIT_LADDERS:
+            checks.append(launchaudit.audit_launch_blocked(
+                N_MAIN, PAPER_CONFIGS[name]))
+        cfg = PAPER_CONFIGS["bf16_f32"]
+        checks.append(launchaudit.audit_launch_solve(N_MAIN, cfg))
+        checks.append(launchaudit.audit_launch_refine(N_MAIN, cfg))
+        torch.cuda.synchronize()
+        parts["launch_audits_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _audit_other_kernels(gen)
+        torch.cuda.synchronize()
+        parts["other_kernels_s"] = time.perf_counter() - t
+    resources, table, secs = kernelaudit.card_resources(work)
+    parts["profiler_s"] = (secs["profiled_s"] - parts["launch_audits_s"]
+                           - parts["other_kernels_s"])
+    parts["resource_table_s"] = secs["table_s"]
+    t = time.perf_counter()
+    checks += [resources, kernelaudit.audit_kernels()]
+    parts["static_checks_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    route_misses = selftest.mut_card_route("cuda")
+    parts["card_route_mutants_s"] = time.perf_counter() - t
+    launched = [r for r in table if r["launches"]]
+    listed = [r for r in table if r["dynamic_smem"] is not None]
+    line = {"phase": "audit", "device": kind, "nvidia_smi": smi,
+            "checks": [{"name": c.name, "target": c.target, "ok": c.ok,
+                        "violations": [str(v) for v in c.violations]}
+                       for c in checks],
+            "card_route_mutation": {"caught": not route_misses,
+                                    "mutants": ["names", "dispatch"],
+                                    "misses": [str(v)
+                                               for v in route_misses]},
+            "kernels_compiled": len(table),
+            "kernels_listed": len(listed),
+            "kernels_launched": len(launched),
+            "resource_maxima": {
+                "regs": max(r["regs"] for r in table),
+                "static_smem": max(r["static_smem"] for r in table),
+                "dynamic_smem": max((r["dynamic_smem"] for r in listed),
+                                    default=None),
+                "total_smem": max((r["static_smem"] + r["dynamic_smem"]
+                                   for r in listed), default=None),
+                "launch_smem": max((r["launch_smem"] for r in launched),
+                                   default=None),
+                "local_bytes": max(r["local_bytes"] for r in table)},
+            "limits": {"smem": kernelaudit.SMEM_LIMIT,
+                       "regs": kernelaudit.REG_LIMIT},
+            "resources": table,
+            "parts_s": parts,
+            "phase_s": time.perf_counter() - t0}
+    bad = [c.target for c in checks if not c.ok]
+    if bad or route_misses:
+        emit(line)
+        raise AssertionError(f"audit: {bad} failed; card-route mutation "
+                             f"misses {line['card_route_mutation']}")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # phase 6c: the distributed path, 4 ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 DIST_RANKS = 4
@@ -2626,7 +2765,6 @@ DIST_SOLVE_LADDERS = ("bf16_f32", "f16x3_f32", "int8_f32")
 #: leaving out the trailing updates gives (0.55-0.61 at n = 2048)
 DIST_LOWER_TOL = {"bf16": 0.15, "int8": 0.15, "f16": 2e-2, "f32": 2e-5}
 DIST_SCHEDULES = [(bd, cc) for bd in (True, False) for cc in (True, False)]
-_WIDTH = {"int8": 1, "f16": 2, "bf16": 2, "f32": 4, "f64": 8}
 
 
 def dist_cases():
@@ -2664,33 +2802,6 @@ def dist_cases():
     cases.append({"kind": "tune", "smoke": True})
     cases.append({"kind": "imports"})
     return cases
-
-
-def dist_wire(cfg, n, bd, cc):
-    """Bytes each rank hands each collective in one dist_cholesky, by
-    dtype, from the sharded plan alone: the (w, w) diagonal block of every
-    panel (broadcast, or all-gathered with the other ranks' blocks), and
-    for every panel but the last the solved block at ShardedPlan.comm_name
-    (16-bit 2 bytes, int8 1, f32 raw; raw f32 when uncompressed) with one
-    f32 scale where comm_quant says so."""
-    from repro_torch.core.plan import build_plan, shard
-    sp = shard(build_plan(n, cfg), DIST_RANKS)
-    w = n // DIST_RANKS
-    want = {"all_gather": {}, "broadcast": {}, "scatter": {}}
-
-    def add(op, name, nbytes):
-        want[op][name] = want[op].get(name, 0) + nbytes
-    for _ in range(DIST_RANKS):
-        add("broadcast" if bd else "all_gather", "f32", w * w * 4)
-    for j in range(DIST_RANKS - 1):
-        name = sp.comm_name(j)
-        if cc and name not in ("f32", "f64"):
-            add("all_gather", name, w * w * _WIDTH[name])
-            if sp.comm_quant(j):
-                add("all_gather", "f32", 4)
-        else:
-            add("all_gather", "f32", w * w * 4)
-    return want
 
 
 def dist_schedule(cfg, n, rank):
@@ -2736,6 +2847,7 @@ def dist_phase(kind, smi):
     """The dist cases on DIST_RANKS ranks sharing the card, one line a
     case from rank 0, every gate checked here; returns the lines and the
     launches summed over the ranks, by entry of KERNELS."""
+    from repro_torch.audit.conformance import wire_expectation
     from repro_torch.core.precision import PAPER_CONFIGS
     from repro_torch.kernels import ops
     from repro_torch.launch import drive, launch
@@ -2785,7 +2897,9 @@ def dist_phase(kind, smi):
                     f"{res['rel_lower_to_single']} below the diagonal "
                     f"relative to its max (tol {lower_tol}), upper zero "
                     f"{res['upper_zero']}, finite {res['finite']}")
-            want_wire = dist_wire(cfg, case["n"], bd, cc)
+            want_wire = wire_expectation(cfg, case["n"], DIST_RANKS,
+                                         broadcast_diag_only=bd,
+                                         compress=cc)
             for rank, r in enumerate(res["ranks"]):
                 if r["wire"] != want_wire:
                     raise AssertionError(f"dist {label} rank {rank}: wire "
@@ -4100,6 +4214,7 @@ def main() -> int:
           [tune_db_line, tune_smoke_search, lambda: tune_auto_solves(720),
            lambda: tune_serving(N_MAIN, 740), tune_fresh_race])
     emit(census_phase(lines, rates, kind))
+    drive("audit", AUDIT_KERNELS, [lambda: audit_phase(kind, smi)])
     dist_lines, dist_launches = dist_phase(kind, smi)
     for line in dist_lines:
         emit(line)

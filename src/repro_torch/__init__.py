@@ -27,7 +27,7 @@ from repro_torch.core import (PAPER_CONFIGS, PrecisionConfig, RefineConfig,
                               solve_factored, storage_ratio, tree_potrf,
                               tree_potrf_packed, tree_syrk, tree_trsm,
                               tree_trsm_left)
-from repro_torch.serve.engine import generate, prefill_step, serve_step
+from repro_torch.serve import generate, prefill_step, serve_step
 
 __all__ = ["PAPER_CONFIGS", "PrecisionConfig", "RefineConfig",
            "RefineResult", "TreeSPD", "build_plan", "cholesky",

@@ -379,6 +379,80 @@ inline size_t leaf_smem_limit() {
   return (size_t)optin - 256;
 }
 
+// ---------------------------------------------------------------------------
+// Dynamic shared memory, listed kernel by kernel. Every launcher states its
+// kernel's dynamic shared memory before it launches, through
+// dyn_smem<K, BYTES>() (each launch of K takes exactly BYTES) or
+// dyn_smem_upto<K, BOUND>(bytes) (a size found at run time, at most BOUND).
+// Both take the kernel and the size as template arguments, so each launcher
+// the library holds lists its kernel while the library loads, whether it
+// ever launches or not; smem_table() reads the list back. The resource audit
+// (repro_torch/audit/kernelaudit.py) holds every compiled kernel's static
+// plus listed dynamic shared memory against the card's limit, and a compiled
+// kernel that no launcher lists is an error there. Internal linkage: each
+// library keeps its own list.
+// ---------------------------------------------------------------------------
+// cudaDevAttrMaxSharedMemoryPerBlockOptin of sm_90 (H100)
+constexpr int SM90_SMEM_OPTIN = 232448;
+// leaf_smem_limit() on sm_90: the leaf kernels' run-time sizes stay below it
+constexpr int LEAF_SMEM_BOUND = SM90_SMEM_OPTIN - 256;
+
+namespace {
+
+struct DynSmemEntry {
+  const void* fn;
+  int bytes, bound;
+};
+constexpr int DYN_SMEM_MAX = 256;
+DynSmemEntry dyn_smem_list[DYN_SMEM_MAX];  // constant-initialized: filled
+int dyn_smem_count = 0;                    // before any launcher can run
+
+bool dyn_smem_add(const void* fn, int bytes, int bound) {
+  if (dyn_smem_count == DYN_SMEM_MAX) return false;
+  dyn_smem_list[dyn_smem_count++] = {fn, bytes, bound};
+  return true;
+}
+
+template <auto K, int BYTES, int BOUND> struct DynSmemListed {
+  static const bool ok;
+};
+template <auto K, int BYTES, int BOUND>
+const bool DynSmemListed<K, BYTES, BOUND>::ok = dyn_smem_add((const void*)K, BYTES, BOUND);
+
+// Kernel K's dynamic shared memory is BYTES in every launch: set it once.
+template <auto K, int BYTES> int dyn_smem() {
+  static bool configured = false;  // the attribute is set once per kernel
+  if (!DynSmemListed<K, BYTES, 0>::ok) return (int)cudaErrorInitializationError;
+  if (BYTES > 0 && !configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  return 0;
+}
+
+// Kernel K's dynamic shared memory is `bytes` in this launch, at most BOUND.
+template <auto K, int BOUND> int dyn_smem_upto(size_t bytes) {
+  if (!DynSmemListed<K, BOUND, 1>::ok || bytes > (size_t)BOUND)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+
+// Entry i of the library's list: the kernel's name (cudaFuncGetName), its
+// dynamic shared memory, and whether that is a bound (1) or exact (0).
+// Returns the number of entries, or -1 - the error where a name is unread.
+extern "C" int smem_table(int i, const char** name, int* bytes, int* bound) {
+  if (i < 0 || i >= dyn_smem_count) return dyn_smem_count;
+  const cudaError_t err = cudaFuncGetName(name, dyn_smem_list[i].fn);
+  if (err != cudaSuccess) return -1 - (int)err;
+  *bytes = dyn_smem_list[i].bytes;
+  *bound = dyn_smem_list[i].bound;
+  return dyn_smem_count;
+}
+
 // Launch-error convention of every C entry point: return the launch's
 // cudaError_t (0 on success) so the Python wrapper can raise.
 #define RETURN_LAUNCH_STATUS() return (int)cudaGetLastError()

@@ -184,13 +184,7 @@ int launch(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll kss,
            const void* v, ll vsb, ll vss, ll vsh, void* o, ll osb, ll oss, ll osh, int B,
            int H, int KV, int S, int Tk, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  if (const int err = dyn_smem<flash_kernel<HD>, (int)smem>()) return err;
   const dim3 grid((S + FB_Q - 1) / FB_Q, B * H);
   flash_kernel<HD><<<grid, F_THREADS, smem, stream>>>(
       (const float*)q, qsb, qss, qsh, (const float*)k, ksb, kss, ksh, (const float*)v, vsb,

@@ -543,13 +543,7 @@ int launch_tc(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll k
               const void* v, ll vsb, ll vss, ll vsh, void* o, ll osb, ll oss, ll osh, int B,
               int H, int KV, int S, int Tk, float scale, int causal, cudaStream_t stream) {
   using C = FtcCfg<BF, HD>;
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_tc_kernel<BF, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  if (const int err = dyn_smem<flash_tc_kernel<BF, HD>, C::SMEM>()) return err;
   CUtensorMap mq, mk, mv;
   int err = encode<BF, HD>(&mq, q, B, S, H, qsb, qss, qsh, C::BM);
   if (!err) err = encode<BF, HD>(&mk, k, B, Tk, KV, ksb, kss, ksh, C::BKV);

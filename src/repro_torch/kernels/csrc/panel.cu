@@ -535,13 +535,7 @@ static int launch_tc(const void* codes, int m, int nbatch, const float* alpha, f
                      cudaStream_t stream) {
   const int cvec = ((uintptr_t)C % 16 == 0) && (ldc % 4 == 0) && (sc % 4 == 0);
   using S = PtcShape<T, B>;
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        panel_tc<T, B>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  if (const int err = dyn_smem<panel_tc<T, B>, S::SMEM>()) return err;
   // (N m rows, b codes of k) K-major, boxes of 128 rows x 128 bytes of k
   CUtensorMap map;
   const int err = encode_2d(&map, Ptc<T>::TYPE, codes, B, (uint64_t)m * nbatch,
@@ -658,11 +652,6 @@ panel_simt(const uint8_t* lq, ll slot_stride, const T* l21, ll lda, ll sl, const
   }
 }
 
-template <typename K>
-static int set_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // Steps 2 and 6 at one tile shape, over nbatch matrices (sl, sa, sc: the
 // batch strides of Linv, A21 and C; A_r is (nbatch, m, b) contiguous).
 template <typename T, int BT, int TM>
@@ -671,13 +660,9 @@ static int launch_simt(const T* ar, const void* linv, ll ldlinv, ll sl, T* a21, 
                        const int2* items, int nitems, int m, int b, int nbatch, int rounding,
                        cudaStream_t stream) {
   constexpr int SM = simt_smem<T, BT, TM>(), SM_SOLVE = sg_async_smem<T, BT, BT, PS_ST, PS_BK>();
-  static bool configured = false;
-  if (!configured) {
-    int err = set_smem(panel_solve<T, BT, TM>, SM_SOLVE);
-    if (!err) err = set_smem(panel_simt<T, BT, TM>, SM);
-    if (err) return err;
-    configured = true;
-  }
+  int err = dyn_smem<panel_solve<T, BT, TM>, SM_SOLVE>();
+  if (!err) err = dyn_smem<panel_simt<T, BT, TM>, SM>();
+  if (err) return err;
   if (ar) {
     panel_solve<T, BT, TM><<<dim3(b / BT, m / BT, nbatch), SG_THREADS, SM_SOLVE, stream>>>(
         ar, b, (ll)m * b, (const T*)linv, ldlinv, sl, a21, lda, sa, m, b, b);
@@ -730,12 +715,15 @@ static int launch(const void* linv, ll ldlinv, ll sl, void* a21, ll lda, ll sa, 
   T* Ar = (T*)a_r;
   const int* stab = (const int*)store_tab;
   const dim3 rows(nt, nbatch);
+  int err = dyn_smem<panel_round_rows<T>, 0>();
+  if (!err) err = dyn_smem<panel_copies<T>, 0>();
+  if (err) return err;
   // 1. incoming panel at its storage names (a plain copy without rounding)
   panel_round_rows<T><<<rows, R_THREADS, 0, stream>>>(A21, lda, sa, Ar, b, mb, b, stab,
                                                        rounding ? -1 : NM_F64);
   // 2. L21 = A_r @ Linv^T over A21
-  int err = simt<T>(b, bt, Ar, linv, ldlinv, sl, A21, lda, sa, nullptr, 0, nullptr, nullptr, 0,
-                    0, nullptr, 0, m, nbatch, rounding, stream);
+  err = simt<T>(b, bt, Ar, linv, ldlinv, sl, A21, lda, sa, nullptr, 0, nullptr, nullptr, 0, 0,
+                nullptr, 0, m, nbatch, rounding, stream);
   if (err) return err;
   // 3. L21 back onto its storage grid
   if (rounding)

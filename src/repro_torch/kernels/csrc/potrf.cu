@@ -234,9 +234,8 @@ potrf_kernel(const T* A, ll lda, ll sa, T* O, ll ldo, ll so, int b, int ps) {
 template <typename T, bool RES, bool VEC>
 static int launch_variant(const T* A, ll lda, ll sa, T* O, ll ldo, ll so, int b, int ps,
                           int ntiles, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      potrf_kernel<T, RES, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (const int err = dyn_smem_upto<potrf_kernel<T, RES, VEC>, LEAF_SMEM_BOUND>(smem))
+    return err;
   potrf_kernel<T, RES, VEC><<<ntiles, POTRF_THREADS, smem, stream>>>(A, lda, sa, O, ldo, so, b,
                                                                      ps);
   RETURN_LAUNCH_STATUS();

@@ -131,15 +131,10 @@ template <typename T, int TA, int TB>
 int launch_tc(const void* A, ll lda, ll sa, const void* B, ll ldb, ll sb, const void* C, ll ldc,
               ll sc, void* O, ll ldo, ll so, int nbatch, int M, int N, int K, double scale,
               double beta, const void* scale_dev, ll ssc, int has_c, cudaStream_t stream) {
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qgemm_tc_kernel<T, TA, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize, QTC_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  int err = dyn_smem<qgemm_tc_kernel<T, TA, TB>, QTC_SMEM>();
+  if (err) return err;
   CUtensorMap ma, mb;
-  int err = qtc_map_batched<T>(&ma, A, lda, sa, nbatch, TA, M, K, QTC_BM);
+  err = qtc_map_batched<T>(&ma, A, lda, sa, nbatch, TA, M, K, QTC_BM);
   if (!err) err = qtc_map_batched<T>(&mb, B, ldb, sb, nbatch, TB, N, K, QTC_BN);
   if (err) return err;
   const dim3 grid((N + QTC_BN - 1) / QTC_BN, (M + QTC_BM - 1) / QTC_BM, nbatch);
@@ -231,15 +226,9 @@ int launch_simt(const void* A, ll sam, ll sak, int alay, ll sa, const void* B, l
                 const void* scale_dev, ll ssc, int has_c, cudaStream_t stream) {
   auto kernel = qgemm_simt_kernel<Tin, Tacc, BM, BN, TM, TN, BK, ASYNC>;
   constexpr int SMEM = ASYNC ? sg_async_smem<Tin, BM, BN, QS_ST, BK>() : 0;
-  if constexpr (SMEM > 0) {
-    static bool configured = false;  // the attribute is set once per instance
-    if (!configured) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
-  }
+  int err = dyn_smem<qgemm_simt_kernel<Tin, Tacc, BM, BN, TM, TN, BK, ASYNC>, SMEM>();
+  if (!err) err = dyn_smem<qgemm_reduce_kernel<Tacc>, 0>();
+  if (err) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S * nbatch);
   kernel<<<grid, SG_THREADS, SMEM, stream>>>(
       (const Tin*)A, sam, sak, alay, sa, (const Tin*)B, sbn, sbk, blay, sb, (const Tacc*)C, ldc,

@@ -249,13 +249,7 @@ static int launch_kc(const T* A, ll lda, const T* X, ll sx0, ll sx1, const T* B,
   // f64 at 16 columns holds 64 f64 accumulators a thread: one block an SM
   constexpr int MINB = (sizeof(T) == 8 && KC == 16) ? 1 : 2;
   constexpr int SMEM = ring_bytes<T, KC>();
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        residual_kernel<T, KC, ALIGNED, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  if (const int err = dyn_smem<residual_kernel<T, KC, ALIGNED, MINB>, SMEM>()) return err;
   const int rows = Shape<T, KC>::ROWS;
   dim3 grid((m + rows - 1) / rows, (k + KC - 1) / KC);
   residual_kernel<T, KC, ALIGNED, MINB><<<grid, R_THREADS, SMEM, stream>>>(

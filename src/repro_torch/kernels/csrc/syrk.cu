@@ -174,15 +174,7 @@ static int launch_wide(dim3 grid, const void* A, ll lda, void* C, ll ldc, void* 
                        int kc, const float* s, double sh, const float* b, double bh,
                        cudaStream_t stream) {
   constexpr int SMEM = ASYNC ? sg_async_smem<float, SW_B, SW_B, SW_ST, SW_BK>() : 0;
-  if constexpr (SMEM > 0) {
-    static bool configured = false;  // the attribute is set once per instance
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          syrk_tiles_wide<SPLIT, ASYNC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
-  }
+  if (const int err = dyn_smem<syrk_tiles_wide<SPLIT, ASYNC>, SMEM>()) return err;
   syrk_tiles_wide<SPLIT, ASYNC><<<grid, SG_THREADS, SMEM, stream>>>(
       (const float*)A, lda, (float*)C, ldc, (float*)P, n, K, kc, s, sh, b, bh);
   return 0;
@@ -207,6 +199,7 @@ static int launch_leaf_f32(const void* A, ll lda, void* C, ll ldc, void* P, int 
                   : (async ? launch_wide<false, true>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream)
                            : launch_wide<false, false>(grid, A, lda, C, ldc, part, n, K, kk, s, sh, b, bh, stream));
   if (err) return err;
+  if (S > 1 && (err = dyn_smem<syrk_reduce<float, float, SW_B>, 0>())) return err;
   if (S > 1)
     syrk_reduce<float, float, SW_B><<<dim3(ntri, 16), G_THREADS, 0, stream>>>(
         (const float*)P, S, (float*)C, ldc, n, s, sh, b, bh);
@@ -224,6 +217,10 @@ static int launch(const void* A, ll lda, void* C, ll ldc, void* P, int n, int K,
   const int S = K > kc ? (K + kc - 1) / kc : 1;
   const float* s = (const float*)sdev;
   const float* b = (const float*)bdev;
+  int err = dyn_smem<syrk_tiles<Ta, Tacc, Tc, false>, 0>();
+  if (!err) err = dyn_smem<syrk_tiles<Ta, Tacc, Tc, true>, 0>();
+  if (!err) err = dyn_smem<syrk_reduce<Tacc, Tc, GB_M>, 0>();
+  if (err) return err;
   if (S == 1) {
     syrk_tiles<Ta, Tacc, Tc, false><<<dim3(ntri, 1), G_THREADS, 0, stream>>>(
         (const Ta*)A, lda, (Tc*)C, ldc, nullptr, n, K, K, s, sh, b, bh);
@@ -300,15 +297,10 @@ static int launch_packed_tc(const void* A, ll lda, void* C, ll ldc, int n, int K
                             const void* sdev, double sh, const void* bdev, double bh,
                             cudaStream_t stream) {
   if ((uintptr_t)A % 16 || (lda * (ll)sizeof(T)) % 16) return (int)cudaErrorInvalidValue;
-  static bool configured = false;  // the attribute is set once per instance
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        syrk_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, QTC_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  int err = dyn_smem<syrk_tc_kernel<T>, QTC_SMEM>();
+  if (err) return err;
   CUtensorMap map;
-  const int err = qtc_map<T>(&map, A, lda, 0, n, K, QTC_BM);
+  err = qtc_map<T>(&map, A, lda, 0, n, K, QTC_BM);
   if (err) return err;
   const int nt = (n + QTC_BN - 1) / QTC_BN;
   syrk_tc_kernel<T><<<nt * (nt + 1), 3 * QTC_WG, QTC_SMEM, stream>>>(
@@ -361,15 +353,7 @@ static int launch_packed_simt(const void* A, ll lda, void* C, ll ldc, int n, int
                               cudaStream_t stream) {
   auto kernel = syrk_packed_simt<Ta, Tc, B, TM, ASYNC>;
   constexpr int SMEM = ASYNC ? sg_async_smem<Ta, B, B, SP_ST, SP_BK>() : 0;
-  if constexpr (SMEM > 0) {
-    static bool configured = false;  // the attribute is set once per instance
-    if (!configured) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
-  }
+  if (const int err = dyn_smem<syrk_packed_simt<Ta, Tc, B, TM, ASYNC>, SMEM>()) return err;
   const int nt = (n + B - 1) / B;
   kernel<<<nt * (nt + 1) / 2, SG_THREADS, SMEM, stream>>>(
       (const Ta*)A, lda, (Tc*)C, ldc, n, K, (const float*)sdev, sh, (const float*)bdev, bh);
@@ -440,6 +424,7 @@ __global__ void tri_decode_kernel(int* I, int* J, int count) {
 
 extern "C" int tri_decode_check(void* I, void* J, int count, void* stream) {
   if (count <= 0) return (int)cudaErrorInvalidValue;
+  if (const int err = dyn_smem<tri_decode_kernel, 0>()) return err;
   tri_decode_kernel<<<(count + 255) / 256, 256, 0, (cudaStream_t)stream>>>((int*)I, (int*)J,
                                                                            count);
   RETURN_LAUNCH_STATUS();

@@ -177,9 +177,8 @@ tri_inv_kernel(const T* L, ll ldl, ll sl, T* X, ll ldx, ll sx, int b) {
 template <typename T, bool RES, bool VEC>
 static int launch_variant(const T* L, ll ldl, ll sl, T* X, ll ldx, ll sx, int b, int ntiles,
                           size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tri_inv_kernel<T, RES, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (const int err = dyn_smem_upto<tri_inv_kernel<T, RES, VEC>, LEAF_SMEM_BOUND>(smem))
+    return err;
   tri_inv_kernel<T, RES, VEC><<<ntiles, TI_THREADS, smem, stream>>>(L, ldl, sl, X, ldx, sx, b);
   RETURN_LAUNCH_STATUS();
 }

@@ -111,15 +111,9 @@ static int launch(const void* B, ll ldb, int blay, const void* Li, ll ldl, int l
                   ll ldx, void* P, int M, int n, int kc, cudaStream_t stream) {
   auto kernel = trsm_kernel<T, BM, BN, TM, TN, ASYNC>;
   constexpr int SMEM = ASYNC ? sg_async_smem<T, BM, BN, TR_ST, TR_BK>() : 0;
-  if constexpr (SMEM > 0) {
-    static bool configured = false;  // the attribute is set once per instance
-    if (!configured) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
-  }
+  int err = dyn_smem<trsm_kernel<T, BM, BN, TM, TN, ASYNC>, SMEM>();
+  if (!err) err = dyn_smem<trsm_reduce<T, BN>, 0>();
+  if (err) return err;
   int items = 0;
   for (int j = 0; j * BN < n; ++j) items += (min(n, (j + 1) * BN) + kc - 1) / kc;
   const bool split = kc < n;

@@ -31,11 +31,12 @@ import ctypes
 
 import torch
 
+from repro_torch.core.precision import DTYPES
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import FLASH_BK
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16",
-           torch.float16: "f16"}
+_SUFFIX = {torch.float32: "f32", DTYPES["bf16"]: "bf16",
+           DTYPES["f16"]: "f16"}
 #: the head dims the kernel is built for: every dense config's
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 _FNS: dict = {}

@@ -50,10 +50,11 @@ import functools
 
 import torch
 
+from repro_torch.core.precision import DTYPES
 from repro_torch.kernels import _build
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
-           torch.bfloat16: "bf16", torch.int8: "s8"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", DTYPES["f16"]: "f16",
+           DTYPES["bf16"]: "bf16", DTYPES["int8"]: "s8"}
 _FNS: dict = {}
 _P, _L, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_double)
@@ -69,14 +70,14 @@ _SIMT_ARGS = (_P, _L, _L, _I, _L, _P, _L, _L, _I, _L, _P, _L, _L, _P, _L,
               _L, _P, _I, _I, _I, _I, _I, _I, _D, _D, _P, _L, _I, _P)
 
 #: operand dtypes of the tensor-core route
-TC_DTYPES = (torch.float16, torch.bfloat16, torch.int8)
+TC_DTYPES = (DTYPES["f16"], DTYPES["bf16"], DTYPES["int8"])
 #: output tile of the tensor-core kernel (csrc/qgemm.cu: QTC_BM, QTC_BN)
 TC_TILE = (128, 256)
 #: bytes of k a stage holds: one 128-byte swizzle row (64 16-bit values or
 #: 128 int8), four wgmma k-steps of 32 bytes
 TC_STAGE_K_BYTES = 128
 #: k of one wgmma: 32 bytes of the operand type
-TC_WGMMA_K = {torch.float16: 16, torch.bfloat16: 16, torch.int8: 32}
+TC_WGMMA_K = {DTYPES["f16"]: 16, DTYPES["bf16"]: 16, DTYPES["int8"]: 32}
 #: TMA's alignment of bases and row strides, and of the SIMT 16-byte loads
 ALIGN = 16
 #: SIMT tiles (csrc/qgemm.cu entries): wide by accumulator, narrow, and mid
@@ -161,7 +162,7 @@ def plan(M: int, N: int, K: int, dtype, a_major, b_major,
     ``nbatch``: the partial sums of all the batch's k-splits share
     ``KSPLIT_SCRATCH_BYTES``."""
     if dtype in TC_DTYPES:
-        ok = ("k",) if dtype == torch.int8 else ("k", "mn")
+        ok = ("k",) if dtype == DTYPES["int8"] else ("k", "mn")
         sa, sb = a_major not in ok, b_major not in ok
         return Plan("tc_staged" if sa or sb else "tc", TC_TILE, max(K, 1),
                     1, sa, sb)

@@ -132,7 +132,7 @@ def syrk_ref(c, a, *, alpha=1.0, beta=1.0, scale=1.0):
     is summed in f32 (f64 if C or A is f64); a narrow matmul in torch would
     round its result to the narrow type."""
     if not a.dtype.is_floating_point:
-        a = a.to(torch.bfloat16)
+        a = a.to(DTYPES["bf16"])
     ad = _acc_dtype(c, a)
     aw = a.to(ad)
     acc = aw @ aw.T

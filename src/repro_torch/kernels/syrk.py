@@ -42,13 +42,14 @@ import functools
 
 import torch
 
+from repro_torch.core.precision import DTYPES
 from repro_torch.kernels import _build, qgemm
 
 #: (A dtype, C dtype) -> kernel suffix
 _SUFFIX = {(torch.float32, torch.float32): "f32",
-           (torch.bfloat16, torch.float32): "bf16",
-           (torch.float16, torch.float32): "f16",
-           (torch.int8, torch.float32): "s8",
+           (DTYPES["bf16"], torch.float32): "bf16",
+           (DTYPES["f16"], torch.float32): "f16",
+           (DTYPES["int8"], torch.float32): "s8",
            (torch.float32, torch.float64): "f32_f64",
            (torch.float64, torch.float64): "f64"}
 _FNS: dict = {}
@@ -63,7 +64,7 @@ _PACKED_ARGS = (_P, _L, _P, _L, _I, _I, _I, _I, _P, _D, _P, _D, _P)
 _SPLIT = {64: (320, 256), 128: (132, 64)}
 
 #: A's types on the tensor cores (syrk_packed's tc route)
-TC_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
+TC_DTYPES = (DTYPES["bf16"], DTYPES["f16"], DTYPES["int8"])
 #: syrk_packed's output tiles: the tensor cores' (csrc/tc_gemm.cuh: QTC_BM,
 #: QTC_BN) and the SIMT blocks (csrc/syrk.cu: syrk_packed_simt)
 TC_TILE = (128, 256)
@@ -165,7 +166,7 @@ def syrk_leaf(c, a, scale=1.0, beta=1.0, *, out=None):
     kc, chunks = leaf_chunk(n, k, block)
     part = None
     if chunks > 1:
-        acc = {torch.int8: torch.int32, torch.float64: torch.float64}.get(
+        acc = {DTYPES["int8"]: torch.int32, torch.float64: torch.float64}.get(
             a.dtype, torch.float64 if c.dtype == torch.float64
             else torch.float32)
         nt = _cdiv(n, block)
