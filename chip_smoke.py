@@ -38,7 +38,11 @@ result line. Phases:
    prefill shape of phase 8: gemma-2b's 4 x 2048, 1 x 8192 and 4 x 1023
    (H = 8, KV = 1, hd = 256, bf16) and 2 x 256 .. 263 (f32),
    nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128),
-   and hd = 192; each case against the derived worst-case atol and a
+   and hd = 192; the vlm, audio and moe phases' (MLA's H = KV = 16 and
+   128 at hd 192, pixtral's H 32, KV 8, hd 128, musicgen's H = KV = 32,
+   hd 64; their contracts' length 1023, the f32 runs' 2 x 256 .. 263,
+   the smoke configs' 2 x 48), the four timed beside SDPA; each case
+   against the derived worst-case atol and a
    data-scaled one, 256 u max|v|, and each 16-bit case to a share of
    rounded outputs that differ from the plain version's, which a one-pass
    p (tests/test_torch_flash.py's emulation, run here) exceeds); times
@@ -218,12 +222,34 @@ result line. Phases:
    tolerance. ``generate_gqa``: nemotron-4-15b at full width with 2 of its
    32 layers (the GQA path, KV = 8, G = 6, hd = 128, and the relu2 MLP),
    1 prompt of 4096 tokens with 8 new ones, and its contract at 1 x 1024.
-   ``token_exact_f32``: gemma-2b at full width with 2 layers in f32:
+   After the bf16_f32 path at n = 32768 (phase 7), the vlm, audio and
+   moe families at full width, bf16, random weights: ``generate_moe``,
+   deepseek-v2-lite-16b uncut (27 layers: 1 dense + 26 MoE with MLA),
+   4 x 2048 with 32 new tokens (profiled: device ms by kernel, the
+   expert loop's products apart as the ``moe_expert_loop`` range), its
+   contract at 4 x 1024 (the prefix's prefill and the decode step
+   replay the full prefill's experts; the flips their own routers would
+   have made are counted by MoE layer), and ``moe_oracle``: layer 0's
+   routed experts against the dense per-expert oracle, f32 and bf16 on
+   512 rows and bf16 on decode's 4, within a derived bound, routing
+   equal, two runs bitwise, bf16 under the served cuBLAS setting and
+   bitwise equal to f32 sums; ``generate_moe_v3``: deepseek-v3-671b at full width cut to
+   4 of 61 layers (its 3 dense + 1 MoE), 1 x 4096 with 8, and its
+   contract at 1 x 1024; ``generate_vlm``: pixtral-12b uncut (40
+   layers), 2 x 4096 whose first 256 positions are random patch
+   embeddings, 16 new tokens, contract at 2 x 1024; ``generate_audio``:
+   musicgen-large uncut (48 layers), 4 x 2048 frames of 4 codebooks, 32
+   new frames, contract at 4 x 1024. Each prefill launches flash n_layers
+   times on flash_tc. ``token_exact_f32``: gemma-2b, pixtral-12b,
+   musicgen-large and deepseek-v2-lite-16b at full width with 2 layers in
+   f32 (2 x 256; pixtral 2 x 512, text after its 256 patch positions):
    generate equals teacher-forced greedy over 8 tokens
    (tests/test_serve.py:14-41), and the contract at 5e-4.
    ``model_cpu_agreement``: prefill logits of the smoke configs of
-   gemma-2b, granite-34b and nemotron-4-15b on the card against the port
-   on the CPU.
+   gemma-2b, granite-34b, nemotron-4-15b, pixtral-12b, musicgen-large,
+   deepseek-v2-lite-16b and deepseek-v3-671b (the last two at
+   nope_head_dim 48: the flash kernels have no head dim 48) on the card
+   against the port on the CPU.
 9. ``cpu_agreement``: each ladder's factor on the card against the same
    port run on the CPU at n = 2048, both engines.
 10. ``train``: gemma-2b full (18 layers, d 2048, d_ff 16384, vocab 256000,
@@ -250,6 +276,7 @@ one matrix, so the entries add up to the launches.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import importlib.util
@@ -1694,7 +1721,8 @@ def kernel_flash(rates, gen):
     phases give it: gemma-2b's B = 4, S = 2048 and 1 x 8192 (H = 8,
     KV = 1, hd = 256, bf16), its contract's 4 x 1023, the f32 2-layer
     run's 2 x 256 .. 263, nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48,
-    KV = 8, hd = 128), and hd = 192 (nemotron-4-340b's, G = 12); times of
+    KV = 8, hd = 128), and hd = 192 (nemotron-4-340b's, G = 12); the
+    vlm, audio and moe phases' (_ZOO_TIMED, _ZOO_PREFILLS); times of
     each route's kernel, the plain version and SDPA beside the card's
     least time."""
     import torch.nn.functional as F
@@ -1725,7 +1753,7 @@ def kernel_flash(rates, gen):
                                   (4, 1023, 8, 1, 256, bf),
                                   (2, 256, 8, 1, 256, f32),
                                   (2, 263, 8, 1, 256, f32),
-                                  (1, 1023, 48, 8, 128, bf)]:
+                                  (1, 1023, 48, 8, 128, bf)] + _ZOO_PREFILLS:
         checks.append(_flash_case(gen, B, S, H, KV, hd, dt)[1])
         torch.cuda.empty_cache()
     refusals = _flash_refusals()
@@ -1773,8 +1801,34 @@ def kernel_flash(rates, gen):
     gqa_chk, gqa = timed(gen, 1, 4096, 48, 8, 128, bf, 20)
     checks += [main_chk, f16_chk, f32_chk, gqa_chk]
     torch.cuda.empty_cache()
+    zoo = {}
+    for arch, shape in _ZOO_TIMED.items():
+        chk, zoo[arch] = timed(gen, *shape, bf, 10)
+        checks.append(chk)
+        torch.cuda.empty_cache()
     return checks, {**main, "f16": f16_t, "f32": f32_t,
-                    "nemotron-4-15b": gqa, "refusals": refusals}
+                    "nemotron-4-15b": gqa, **zoo, "refusals": refusals}
+
+
+#: the vlm, audio and moe phases' timed prefills (B, S, H, KV, hd):
+#: MLA runs flash with H = KV and head dim dn + dr = 192, v padded to it
+_ZOO_TIMED = {"deepseek-v2-lite-16b": (4, 2048, 16, 16, 192),
+              "deepseek-v3-671b": (1, 4096, 128, 128, 192),
+              "pixtral-12b": (2, 4096, 32, 8, 128),
+              "musicgen-large": (4, 2048, 32, 32, 64)}
+#: their other prefills: each contract's length - 1, the f32 2-layer
+#: runs' 2 x 256 .. 263 (pixtral's 2 x 512 .. 519), the smoke configs'
+#: 2 x 48 on the card
+_ZOO_PREFILLS = (
+    [(4, 1023, 16, 16, 192, torch.bfloat16),
+     (1, 1023, 128, 128, 192, torch.bfloat16),
+     (2, 1023, 32, 8, 128, torch.bfloat16),
+     (4, 1023, 32, 32, 64, torch.bfloat16)]
+    + [(2, S, H, KV, hd, torch.float32) for (S, H, KV, hd) in (
+        (256, 16, 16, 192), (263, 16, 16, 192), (512, 32, 8, 128),
+        (519, 32, 8, 128), (256, 32, 32, 64), (263, 32, 32, 64))]
+    + [(2, 48, H, KV, hd, torch.float32)
+       for (H, KV, hd) in ((4, 2, 16), (4, 4, 16), (4, 4, 64))])
 
 
 # ---------------------------------------------------------------------------
@@ -2223,6 +2277,13 @@ _SPANS = (("flash_tc", "flash_attention"),
           ("xmma", "torch matmul (cuBLAS)"))
 
 
+#: profiler ranges the port opens (``torch.profiler.record_function``):
+#: each one's device time (the kernels launched inside it, already booked
+#: by kernel above) is reported apart: moe_expert_loop is the MoE layers'
+#: per-expert products (models/moe.py)
+_RANGES = ("moe_expert_loop",)
+
+
 #: empty kernels (torch.cuda._sleep, "spin_kernel") launched at the start
 #: of every profiled window. torch.profiler (2.11, on the H100) loses the
 #: first device events of a session, more the longer the process has run,
@@ -2275,8 +2336,13 @@ def _profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by, booked, events, sentinels = {}, {}, 0, 0
+    by, booked, events, sentinels, ranges = {}, {}, 0, 0, {}
     for ev in prof.key_averages():
+        if ev.key in _RANGES:
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                ranges[ev.key] = {"calls": ev.count,
+                                  "device_ms": ev.device_time_total / 1e3}
+            continue
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if "spin_kernel" in ev.key:
@@ -2296,6 +2362,8 @@ def _profile_window(fn):
             "device_events": events, "launches": launched,
             "sentinels_booked": sentinels,
             "device_busy_share": busy / wall_ms if by else None}
+    if ranges:
+        line["ranges"] = ranges
     if unseen or not sentinels:
         return line, {"unseen": unseen, "sentinels": sentinels}
     return line, None
@@ -3261,9 +3329,36 @@ def _model(arch, seed, **overrides):
 
 
 def _prompt(cfg, batch, length, seed):
+    """Random tokens on the card from a generator seeded with ``seed``:
+    [batch, length] (audio: [batch, length, n_codebooks])."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, cfg.vocab, (batch, length), generator=g,
-                         device="cuda")
+    shape = (batch, length) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                               else ())
+    return torch.randint(0, cfg.vocab, shape, generator=g, device="cuda")
+
+
+def _prompt_batch(cfg, batch, length, seed, device="cuda"):
+    """A prompt batch: :func:`_prompt`'s tokens and, for vlm, the stub
+    frontend's patch embeddings [batch, n_img_tokens, d] in f32 from a
+    generator seeded with ``seed + 1`` (on the card, then moved to
+    ``device``)."""
+    out = {"tokens": _prompt(cfg, batch, length, seed)}
+    if cfg.family == "vlm":
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.n_img_tokens, cfg.d_model), generator=g,
+            device="cuda")
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def _prefix(batch, n):
+    """The batch's first n positions (the patch embeddings as they are)."""
+    return {k: (v[:, :n] if k == "tokens" else v) for k, v in batch.items()}
+
+
+def _token_shape(cfg, batch, n):
+    return (batch, n) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                         else ())
 
 
 def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
@@ -3276,7 +3371,7 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
     dtype; every logit must be finite."""
     from repro_torch import serve
     from repro_torch.models import transformer as T
-    prompt = {"tokens": _prompt(cfg, batch, prompt_len, seed)}
+    prompt = _prompt_batch(cfg, batch, prompt_len, seed)
     L = cfg.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3291,8 +3386,8 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
     if flash_gen != L:
         raise AssertionError(f"{what}: generate launched flash_attention "
                              f"{flash_gen} times, not n_layers = {L}")
-    if (tuple(out.shape) != (batch, n_new) or int(out.min()) < 0
-            or int(out.max()) >= cfg.vocab):
+    if (tuple(out.shape) != _token_shape(cfg, batch, n_new)
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
         raise AssertionError(f"{what}: bad tokens {tuple(out.shape)}")
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     before = flash_launches(cfg.adt)
@@ -3307,7 +3402,7 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
                              f"{flash_prefill} times, not {L}")
     caches = T.pad_caches(caches, prompt_len + n_new)
     finite = [bool(torch.isfinite(last).all())]
-    tok = last.argmax(-1)[:, None]
+    tok = serve.pick(last, cfg)
     toks, steps = [tok], []
     for i in range(1, n_new):
         torch.cuda.synchronize()
@@ -3317,7 +3412,7 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
         finite.append(bool(torch.isfinite(logits).all()))
-        tok = logits.argmax(-1)[:, None]
+        tok = serve.pick(logits, cfg)
         toks.append(tok)
     if not all(finite):
         raise AssertionError(f"{what}: non-finite logits")
@@ -3357,20 +3452,93 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
 #: of that and 3 x the largest reading of the sound runs at these seeds
 #: (this script on an NVIDIA H100 80GB HBM3 at 700 W; the same seeds
 #: read the same in every run); the f32 run holds the reference's 5e-4.
-_BF16_CONTRACT_READ = {"gemma-2b": 0.07421875, "nemotron-4-15b": 0.03125}
+#: An MoE layer adds the router, which is not continuous: a token whose
+#: k-th and (k+1)-th expert are closer than the bf16 noise of its input
+#: picks another expert in decode than in prefill, and its hidden state
+#: moves by the expert's output (max ~268 on unit-RMS inputs at
+#: deepseek-v2-lite's layer 0: the reference's init draws the expert
+#: stacks at fan-in E), so the logits would move by as much as they
+#: measure. The contract therefore replays the full prefill's experts in
+#: the prefix's prefill and in the decode step (:func:`_replayed_routes`,
+#: the gates from each run's own probabilities): the ceiling's
+#: derivation holds again, and the flips that the runs' own routers
+#: would have made are reported beside the reading, not gated.
+_BF16_CONTRACT_READ = {"gemma-2b": 0.07421875, "nemotron-4-15b": 0.03125,
+                       "deepseek-v2-lite-16b": 0.6171875,
+                       "deepseek-v3-671b": 0.095703125,
+                       "pixtral-12b": 0.109375, "musicgen-large": 1.25}
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every ``moe.route`` call's top-k experts, in call order (one per
+    MoE layer and forward), while the block runs."""
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def recording(xf, router_w, k):
+        out = route(xf, router_w, k)
+        calls.append(out[2])
+        return out
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def _replayed_routes(full, pick):
+    """While the block runs, the i-th ``moe.route`` call returns the
+    experts ``pick(full[i])`` (rows of the full prefill's i-th call) with
+    the gates taken from this call's own probabilities and renormalised
+    as ``moe.route`` does; the experts this call's router chose itself
+    are collected in the list yielded."""
+    from repro_torch.models import moe
+    own, route = [], moe.route
+
+    def replaying(xf, router_w, k):
+        probs, _, idx_own = route(xf, router_w, k)
+        idx = pick(full[len(own)])
+        own.append(idx_own)
+        gate = probs.gather(-1, idx)
+        gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+        return probs, gate, idx
+    moe.route = replaying
+    try:
+        yield own
+    finally:
+        moe.route = route
+
+
+def _flips(want, got):
+    """Rows whose top-k expert sets differ."""
+    return int((want.sort(-1).values != got.sort(-1).values).any(-1).sum())
 
 
 def decode_contract(label, cfg, params, batch, length, seed):
     """The reference's contract (tests/test_archs.py:55-77) at size:
     prefill length - 1 tokens, pad the caches, decode the last token; its
-    logits against the full prefill's last logits."""
+    logits against the full prefill's last logits. MoE layers replay the
+    full prefill's experts in both later runs (see
+    :data:`_BF16_CONTRACT_READ`)."""
     from repro_torch import serve
     from repro_torch.models import transformer as T
-    toks = _prompt(cfg, batch, length, seed)
-    full, _ = serve.prefill_step(params, {"tokens": toks}, cfg)
-    _, caches = serve.prefill_step(params, {"tokens": toks[:, :-1]}, cfg)
+    prompt = _prompt_batch(cfg, batch, length, seed)
+    with _recorded_routes() as full_routes:
+        full, _ = serve.prefill_step(params, prompt, cfg)
+    K = cfg.moe_topk
+
+    def rows(f, sl):
+        return f.reshape(batch, length, -1)[:, sl].reshape(-1, K)
+    head, last = slice(0, length - 1), slice(length - 1, length)
+    with _replayed_routes(full_routes, lambda f: rows(f, head)) as pre:
+        _, caches = serve.prefill_step(params, _prefix(prompt, length - 1),
+                                       cfg)
     caches = T.pad_caches(caches, length)
-    dec, _ = serve.serve_step(params, caches, toks[:, -1:], length - 1, cfg)
+    with _replayed_routes(full_routes, lambda f: rows(f, last)) as own:
+        dec, _ = serve.serve_step(params, caches,
+                                  prompt["tokens"][:, -1:], length - 1, cfg)
     what = f"{label} {cfg.name} decode vs prefill"
     if not (bool(torch.isfinite(full).all())
             and bool(torch.isfinite(dec).all())):
@@ -3380,38 +3548,55 @@ def decode_contract(label, cfg, params, batch, length, seed):
     if cfg.activ_dtype == "f32":
         tol, how = 5e-4, "5e-4, the reference's contract"
     else:
-        tol = min(2 * cfg.n_layers * 2.0 ** -8 * scale,
-                  3 * _BF16_CONTRACT_READ[cfg.name])
+        read = _BF16_CONTRACT_READ[cfg.name]
+        tol = min(2 * cfg.n_layers * 2.0 ** -8 * scale, 3 * read)
         how = ("min(2 L 2^-8 max|logits|, 3 x the sound runs' reading "
-               f"{_BF16_CONTRACT_READ[cfg.name]:g})")
-    if not err < tol:
-        raise AssertionError(f"{what}: {err:g} >= {tol:g} ({how})")
-    del caches
-    torch.cuda.empty_cache()
-    return {"phase": f"{label}_decode_vs_prefill", "arch": cfg.name,
+               f"{read:g})")
+    line = {"phase": f"{label}_decode_vs_prefill", "arch": cfg.name,
             "n_layers": cfg.n_layers, "dtype": cfg.activ_dtype,
             "batch": batch, "length": length, "max_abs_err": err,
             "max_abs_logit": scale, "tol": tol, "tol_is": how,
             "argmax_agree_share": float(
                 (dec.argmax(-1) == full.argmax(-1)).float().mean())}
+    if full_routes:
+        line["moe_layers_replayed"] = len(full_routes)
+        line["own_routing_flips_decode_by_moe_layer"] = [
+            _flips(rows(f, last), o) for f, o in zip(full_routes, own)]
+        line["own_routing_flips_prefix_by_moe_layer"] = [
+            _flips(rows(f, head), o) for f, o in zip(full_routes, pre)]
+    if not err < tol:
+        raise AssertionError(f"{what}: {err:g} >= {tol:g} ({how}); {line}")
+    del caches
+    torch.cuda.empty_cache()
+    return line
 
 
 def token_exact(label, cfg, params, batch, length, n_new, seed):
     """tests/test_serve.py:14-41 at size: greedy generate equals re-running
     the full prefill for every new token."""
     from repro_torch import serve
-    toks = _prompt(cfg, batch, length, seed)
-    got = serve.generate(params, {"tokens": toks}, cfg, n_tokens=n_new)
-    cur = toks
+    prompt = _prompt_batch(cfg, batch, length, seed)
+    got = serve.generate(params, prompt, cfg, n_tokens=n_new)
+    cur = dict(prompt)
     for _ in range(n_new):
-        last, _ = serve.prefill_step(params, {"tokens": cur}, cfg)
-        cur = torch.cat([cur, last.argmax(-1)[:, None]], dim=1)
-    if not torch.equal(got, cur[:, length:]):
-        raise AssertionError(f"{label}: generate != teacher-forced greedy: "
-                             f"{got.tolist()} vs {cur[:, length:].tolist()}")
+        last, _ = serve.prefill_step(params, cur, cfg)
+        cur["tokens"] = torch.cat([cur["tokens"], serve.pick(last, cfg)],
+                                  dim=1)
+    want = cur["tokens"][:, length:]
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label} {cfg.name}: generate != "
+                             f"teacher-forced greedy: {got.tolist()} vs "
+                             f"{want.tolist()}")
     return {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
             "dtype": cfg.activ_dtype, "batch": batch, "prompt_len": length,
             "new_tokens": n_new, "generate_equals_teacher_forced": True}
+
+
+#: the smoke MLA configs' head dim dn + dr = 32 + 16 = 48 is none the
+#: flash kernels are built for (flash.HEAD_DIMS): the card runs them at
+#: nope_head_dim 48, dn + dr = 64, on both sides
+_SMOKE_OVERRIDES = {"deepseek-v2-lite-16b": {"nope_head_dim": 48},
+                    "deepseek-v3-671b": {"nope_head_dim": 48}}
 
 
 def model_cpu_agreement(arch, seed):
@@ -3422,6 +3607,8 @@ def model_cpu_agreement(arch, seed):
     from repro_torch import configs
     from repro_torch.models import transformer as T
     cfg = configs.get_config(arch, smoke=True)
+    over = _SMOKE_OVERRIDES.get(arch, {})
+    cfg = cfg.replace(**over)
     pc = T.init_params(cfg, seed=seed, device="cpu")
 
     def to_card(node):
@@ -3431,13 +3618,161 @@ def model_cpu_agreement(arch, seed):
             return [to_card(v) for v in node]
         return node.cuda()
     pg = to_card(pc)
-    toks = torch.randint(0, cfg.vocab, (2, 48),
-                         generator=torch.Generator().manual_seed(seed))
-    lc = T.forward(pc, {"tokens": toks}, cfg, mode="prefill")[0]
-    lg = T.forward(pg, {"tokens": toks.cuda()}, cfg, mode="prefill")[0]
+    bc = _prompt_batch(cfg, 2, 48, seed, device="cpu")
+    lc = T.forward(pc, bc, cfg, mode="prefill")[0]
+    lg = T.forward(pg, {k: v.cuda() for k, v in bc.items()}, cfg,
+                   mode="prefill")[0]
     err = check_close(f"{arch} smoke card vs CPU", lg.cpu(), lc, 0, 1e-4)
-    return {"arch": cfg.name, "shape": [2, 48], "max_abs_err": err,
+    line = {"arch": cfg.name, "shape": [2, 48], "max_abs_err": err,
             "tol": 1e-4}
+    if over:
+        line["overrides"] = over
+    return line
+
+
+#: The first-order bound below is a worst case (every rounding and every
+#: f32 sum's error the same way), 1682 against outputs of 268 in bf16 at
+#: deepseek-v2-lite's layer 0, so each case is also held to a data-scaled
+#: atol: 8 u max|out| for the roundings to the type (h, g, silu(g) h,
+#: the expert output, its gate weight, the adds: each at most a unit, and
+#: summing like a walk), plus 4 (sqrt(D) + sqrt(F)) 2^-24 max|out| for
+#: the f32 sums in other orders (their random-walk growth), with room
+#: over the readings (f32 4.3e-4 and bf16 2.0 against 5.4e-3 and 8.4 on
+#: 512 rows, bf16 1.0 against 5.5 on 4, on an NVIDIA H100 80GB HBM3 at
+#: 700 W; the same seeds read the same in every run).
+_MOE_DATA_TOL = ("atol (8 u + 4 (sqrt(D) + sqrt(F)) 2^-24) max|out|, "
+                 "u = 2^-8 in bf16, 2^-24 in f32")
+_MOE_TOL = ("first-order bound, each side: sum_k g_k [eps_in (P_k @ "
+            "|W_out|) + ((K + 3) u + (F + E) 2^-24) (|a_k| @ |W_out|)], "
+            "a = silu(g) h, P = |silu(g)| (|x| @ |W_in|) + 1.1 |h| (|x| @ "
+            "|W_gate|), eps_in = u + D 2^-24; twice that, the max over "
+            "outputs; u = 2^-8 in bf16, 2^-24 in f32")
+
+
+def _moe_tol(x, p, cfg, u):
+    """The routed output's tolerance against the dense oracle for inputs
+    of unit roundoff u (:data:`_MOE_TOL`), in f32 on x's [T, D] rows:
+    each side rounds h, g, silu(g) h, the expert output, its gate weight
+    and K adds (or the oracle's E-term combine) to x's type, and sums D
+    and F products in f32 in an order of its own."""
+    from repro_torch.models import moe
+    import torch.nn.functional as F
+    T, D = x.shape[0] * x.shape[1], cfg.d_model
+    E, K, Fd = cfg.moe_experts, cfg.moe_topk, cfg.moe_dff
+    xf = x.reshape(T, D).float()
+    w_in, w_gate, w_out = (p[k].float() for k in ("w_in", "w_gate",
+                                                  "w_out"))
+    _, gate, idx = moe.route(xf, p["router"], K)
+    wts = torch.zeros((T, E), device=x.device).scatter_(1, idx, gate)
+    h = torch.einsum("td,edf->tef", xf, w_in)
+    g = torch.einsum("td,edf->tef", xf, w_gate)
+    a = F.silu(g) * h
+    ax = xf.abs()
+    P = (F.silu(g).abs() * torch.einsum("td,edf->tef", ax, w_in.abs())
+         + 1.1 * h.abs() * torch.einsum("td,edf->tef", ax, w_gate.abs()))
+    del g
+    eps_in = u + D * 2.0 ** -24
+    eps_out = (K + 3) * u + (Fd + E) * 2.0 ** -24
+    wo = w_out.abs()
+    side = torch.einsum("te,ted->td", wts,
+                        eps_in * torch.einsum("tef,efd->ted", P, wo)
+                        + eps_out * torch.einsum("tef,efd->ted", a.abs(),
+                                                 wo))
+    return 2 * float(side.max())
+
+
+def _moe_routed_and_oracle(cfg, pw, x, reduced):
+    """The routed path (twice) and the dense oracle on x, with cuBLAS's
+    reduced-precision bf16 reductions set to ``reduced`` and restored
+    after."""
+    from repro_torch.models import moe
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+    try:
+        got, _, routing = moe.moe_local(x, pw["router"], pw["w_in"],
+                                        pw["w_gate"], pw["w_out"], cfg=cfg)
+        again = moe.moe_local(x, pw["router"], pw["w_in"], pw["w_gate"],
+                              pw["w_out"], cfg=cfg)[0]
+        want = moe.moe_ffn_dense_reference(x, pw, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    return got, again, want, routing
+
+
+def moe_oracle(cfg, params, cases, seed):
+    """Layer 0's routed experts at full width on random rows, for each
+    ``(dtype, tokens)`` of ``cases`` (f32: the bf16 weights widened),
+    against the dense per-expert oracle (``moe.moe_ffn_dense_reference``)
+    within :func:`_moe_tol` and a data-scaled atol; the two route alike,
+    and two runs of the routed path give the same bits. The runs use the
+    served setting of cuBLAS's reduced-precision bf16 reductions (on by
+    default); the bounds assume f32 sums, so a bf16 case is run with them
+    off as well and must give the same bits on both sides (on the H100
+    with torch 2.11 and CUDA 12.8 they do: the expert products take no
+    split-K reduction), which carries the check over to the served
+    setting. Times: the routed path and the oracle (events), the expert
+    loop's products by profile."""
+    from repro_torch.models import moe
+    p = params["layers"][0]["moe"]
+    served = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    runs = []
+    for dt, tokens in cases:
+        u = 2.0 ** -8 if dt == torch.bfloat16 else 2.0 ** -24
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((1, tokens, cfg.d_model), generator=g,
+                        device="cuda").to(dt)
+        pw = {k: (v if k == "router" else v.to(dt))
+              for k, v in p.items() if k != "shared"}
+        got, again, want, routing = _moe_routed_and_oracle(cfg, pw, x,
+                                                           served)
+        what = f"moe {cfg.name} layer 0 {_TNAME[dt]} T={tokens}"
+        _, _, idx = moe.route(x.reshape(tokens, -1), pw["router"],
+                              cfg.moe_topk)
+        if not torch.equal(routing["idx"], idx):
+            raise AssertionError(f"{what}: the oracle routes otherwise")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two runs differ")
+        if dt == torch.bfloat16:
+            g32, _, w32, _ = _moe_routed_and_oracle(cfg, pw, x, False)
+            if not (torch.equal(got, g32) and torch.equal(want, w32)):
+                raise AssertionError(
+                    f"{what}: cuBLAS's reduced-precision reductions change "
+                    "the bits, and the bounds assume f32 sums")
+            del g32, w32
+        tol = _moe_tol(x, pw, cfg, u)
+        err = check_close(what, got.float(), want.float(), 0, tol)
+        out_max = float(want.abs().max())
+        data_tol = (8 * u + 4 * (math.sqrt(cfg.d_model)
+                                 + math.sqrt(cfg.moe_dff))
+                    * 2.0 ** -24) * out_max
+        check_close(f"{what} (data-scaled)", got.float(), want.float(),
+                    0, data_tol)
+
+        def routed():
+            return moe.moe_local(x, pw["router"], pw["w_in"], pw["w_gate"],
+                                 pw["w_out"], cfg=cfg)
+        runs.append({
+            "dtype": _TNAME[dt], "tokens": tokens,
+            "cublas_bf16_reduced_reductions": served,
+            "same_bits_with_them_off": True if dt == torch.bfloat16
+            else None,
+            "experts_used": int(routing["idx"].unique().numel()),
+            "max_abs_err": err, "tol": tol, "tol_is": _MOE_TOL,
+            "data_tol": data_tol, "data_tol_is": _MOE_DATA_TOL,
+            "max_abs_out": out_max, "repeat_bitwise": True,
+            "routed_ms": cuda_ms(routed, reps=5, warmup=1),
+            "oracle_ms": cuda_ms(
+                lambda: moe.moe_ffn_dense_reference(x, pw, cfg),
+                reps=3, warmup=1),
+            "routed_profiled": _profiled(routed)})
+        del pw, got, again, want
+        torch.cuda.empty_cache()
+    return {"phase": "moe_oracle", "arch": cfg.name,
+            "experts": cfg.moe_experts, "topk": cfg.moe_topk,
+            "shared": cfg.moe_shared, "d_ff_expert": cfg.moe_dff,
+            "d_model": cfg.d_model, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -4175,8 +4510,10 @@ def main() -> int:
     def drive(label, kernels, runs):
         ops.reset_launches()
         for run in runs:
-            lines.append(run())
-            emit(lines[-1])
+            out = run()         # a line, or a list of lines
+            for line in (out if isinstance(out, list) else [out]):
+                lines.append(line)
+                emit(line)
         got = launch_counts()
         for k in kernels:
             if got[k] == 0:
@@ -4241,18 +4578,6 @@ def main() -> int:
                                    912)])
     del params
     torch.cuda.empty_cache()
-    cfg, params, gib = _model("gemma-2b", 920, n_layers=2,
-                              param_dtype="f32", activ_dtype="f32")
-    drive("token_exact_f32", ("flash_attention_f32",),
-          [lambda: token_exact("token_exact_f32", cfg, params, 2, 256, 8,
-                               921),
-           lambda: decode_contract("token_exact_f32", cfg, params, 2, 256,
-                                   922)])
-    del params
-    torch.cuda.empty_cache()
-    emit({"phase": "model_cpu_agreement",
-          "runs": [model_cpu_agreement(arch, 930 + i) for i, arch in
-                   enumerate(("gemma-2b", "granite-34b", "nemotron-4-15b"))]})
 
     elapsed = time.perf_counter() - t_start
     if elapsed < 500:
@@ -4260,6 +4585,76 @@ def main() -> int:
     else:
         emit({"phase": "path", "ladder": "bf16_f32", "n": 32768,
               "skipped": f"{elapsed:.0f} s spent before it"})
+
+    # the vlm, audio and moe families, bf16, random weights (after the
+    # n = 32768 path, whose time guard they would otherwise eat into)
+    cfg, params, gib = _model("deepseek-v2-lite-16b", 940)
+    drive("generate_moe", ("flash_attention",),
+          [lambda: generate_run("generate_moe", cfg, params, gib, 4, 2048,
+                                32, 941, profile=True),
+           lambda: decode_contract("generate_moe", cfg, params, 4, 1024,
+                                   942),
+           lambda: moe_oracle(cfg, params, ((torch.float32, 512),
+                                            (torch.bfloat16, 512),
+                                            (torch.bfloat16, 4)), 943)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("deepseek-v3-671b", 945, n_layers=4)
+    cut = ("depth cut to 4 of 61 layers (its 3 dense + 1 MoE; the whole "
+           "model is ~1.2 TiB in bf16, no fit on one card): MLA with "
+           "q_lora 1536 and H = 128, 256 routed experts top-8 + 1 shared "
+           "at full width")
+    drive("generate_moe_v3", ("flash_attention",),
+          [lambda: generate_run("generate_moe_v3", cfg, params, gib, 1,
+                                4096, 8, 946, note=cut, profile=True),
+           lambda: decode_contract("generate_moe_v3", cfg, params, 1, 1024,
+                                   947)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("pixtral-12b", 950)
+    drive("generate_vlm", ("flash_attention",),
+          [lambda: generate_run("generate_vlm", cfg, params, gib, 2, 4096,
+                                16, 951, profile=True),
+           lambda: decode_contract("generate_vlm", cfg, params, 2, 1024,
+                                   952)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("musicgen-large", 955)
+    drive("generate_audio", ("flash_attention",),
+          [lambda: generate_run("generate_audio", cfg, params, gib, 4, 2048,
+                                32, 956, profile=True),
+           lambda: decode_contract("generate_audio", cfg, params, 4, 1024,
+                                   957)])
+    del params
+    torch.cuda.empty_cache()
+
+    # f32 at 2 layers: generate == teacher-forced greedy for each family
+    # (deepseek-v2-lite: its dense layer and one MoE layer)
+    def exact_runs(arch, seed):
+        cfg, params, _ = _model(arch, seed, n_layers=2, param_dtype="f32",
+                                activ_dtype="f32")
+        # a vlm prompt no longer than n_img_tokens is all patches, and so
+        # is its prefix's prefill, which the stub fills to n_img_tokens
+        # positions: the contract needs text after the patches
+        S = 2 * cfg.n_img_tokens if cfg.family == "vlm" else 256
+        out = [token_exact("token_exact_f32", cfg, params, 2, S, 8,
+                           seed + 1),
+               decode_contract("token_exact_f32", cfg, params, 2, S,
+                               seed + 2)]
+        del params
+        torch.cuda.empty_cache()
+        return out
+    drive("token_exact_f32", ("flash_attention_f32",),
+          [lambda arch=arch, seed=seed: exact_runs(arch, seed)
+           for arch, seed in (("gemma-2b", 920), ("pixtral-12b", 960),
+                              ("musicgen-large", 964),
+                              ("deepseek-v2-lite-16b", 968))])
+    emit({"phase": "model_cpu_agreement",
+          "runs": [model_cpu_agreement(arch, 930 + i) for i, arch in
+                   enumerate(("gemma-2b", "granite-34b", "nemotron-4-15b",
+                              "pixtral-12b", "musicgen-large",
+                              "deepseek-v2-lite-16b",
+                              "deepseek-v3-671b"))]})
     emit(path_run("f32x3_f64", 4096, 300))
     line = breakdown("f16x3_f32", N_MAIN, 500)
     # the kernel phase's trsm_leaf times at the tree's M, 32 calls each,

@@ -11,10 +11,10 @@ database (``repro_torch.tune``, ``engine="auto"``), iterative refinement
 (``refine_solve``) and solve serving (``repro_torch.serve``, with its
 mesh mode), the distributed factor and solve on ``torch.distributed``
 (``repro_torch.core.distributed``, ranks started by
-``repro_torch.launch``), the model zoo's dense family
-(``repro_torch.configs``, ``repro_torch.models``) served by
-``prefill_step``, ``serve_step`` and ``generate`` and trained
-(``repro_torch.train``, with AdamW and TreeNewton from
+``repro_torch.launch``), the model zoo's dense, vlm, audio and moe
+families (``repro_torch.configs``, ``repro_torch.models``) served by
+``prefill_step``, ``serve_step`` and ``generate``, the dense one also
+trained (``repro_torch.train``, with AdamW and TreeNewton from
 ``repro_torch.optim``), with nine kernels and batched entries of four of
 them; the rest follows (ROADMAP.md, queue A).
 """

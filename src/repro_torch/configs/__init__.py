@@ -1,6 +1,6 @@
 """Architecture registry: --arch <id> resolves here (the port's own copy
 of ``repro/configs``, pure data importing the port's ``ModelConfig``;
-this slice of the port runs the ``dense`` family).
+the port runs the ``dense``, ``vlm``, ``audio`` and ``moe`` families).
 
 Each module defines full() (the exact published config) and smoke()
 (a reduced same-family config for CPU tests). SHAPES lists the assigned

@@ -38,6 +38,7 @@ from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.refine import RefineConfig
 from repro_torch.core.solve import as_tensor
 from repro_torch.core.treematrix import TreeSPD
+from repro_torch.models.transformer import _check_family
 
 
 def config_from_fields(levels, leaf=256, quantize=True,
@@ -120,21 +121,28 @@ def _map(fn, tree):
     return fn(tree)
 
 
+#: the reference's top-level keys whose leaves are stacked by layer
+_STACKED = ("dense_layers", "layers")
+
+
 def model_params_from_reference(params, cfg, device="cuda"):
     """The port's parameters (:mod:`repro_torch.models.transformer`) from
     a reference pytree of ``repro.models.transformer.init_params``, given
     as nested dicts of arrays (numpy, or anything ``numpy.asarray``
     takes; bf16 crosses through its 16-bit pattern). The stacked
-    ``layers`` leaves ``[L, ...]`` are split into ``cfg.n_layers``
-    per-layer dicts. The dense family only (ROADMAP A12)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is ROADMAP A12 "
-                                  "(model zoo: the non-dense families)")
+    ``layers`` (and moe's ``dense_layers``) leaves ``[L, ...]`` are split
+    into per-layer dicts; a layer's expert stacks ``[E, d, F]`` stay
+    stacked and the router stays f32. The transformer families only: the
+    recurrent ones are ROADMAP A12."""
+    _check_family(cfg)
     out = {k: _map(lambda a: _tensor(a, device), v)
-           for k, v in params.items() if k != "layers"}
-    stacked = _map(lambda a: _tensor(a, device), params["layers"])
-    out["layers"] = [_map(lambda t, i=i: t[i], stacked)
-                     for i in range(cfg.n_layers)]
+           for k, v in params.items() if k not in _STACKED}
+    for key in _STACKED:
+        if key not in params:
+            continue
+        stacked = _map(lambda a: _tensor(a, device), params[key])
+        n = next(iter(_ref_paths(stacked).values())).shape[0]
+        out[key] = [_map(lambda t, i=i: t[i], stacked) for i in range(n)]
     return out
 
 
@@ -169,8 +177,8 @@ def _restack_paths(flat):
     out, layered = {}, {}
     for path, t in flat.items():
         parts = path.split("/")
-        if parts[0] == "layers":
-            layered.setdefault("/".join(["layers"] + parts[2:]), []).append(
+        if parts[0] in _STACKED:
+            layered.setdefault("/".join([parts[0]] + parts[2:]), []).append(
                 (int(parts[1]), t))
         else:
             out[path] = _array(t)

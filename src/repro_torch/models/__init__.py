@@ -7,8 +7,16 @@ Modules:
                    prefill (FlashCausal: its gradient recomputes the
                    reference's scan), grouped product against the KV
                    cache for decode
-  transformer.py — init_params, forward (train / prefill / decode),
-                   loss_fn, pad_caches; the dense family only
+  mla.py         — Multi-head Latent Attention (deepseek): flash kernel
+                   for prefill at head dim dn + dr, absorbed f32 decode
+                   against the latent cache
+  moe.py         — shared + routed experts: f32 router, stable sort by
+                   expert, one product per expert on its rows, combine in
+                   a fixed order
+  transformer.py — init_params, embed_inputs / lm_logits (the vlm and
+                   audio stubs), forward (train / prefill / decode),
+                   loss_fn, pad_caches; the dense, vlm, audio and moe
+                   families
 
-The other families (vlm, audio, moe, rwkv, hybrid) are ROADMAP A12.
+The recurrent families (rwkv, hybrid) are ROADMAP A12.
 """

@@ -1,15 +1,25 @@
-"""Model backbone, in torch: the dense family (attention + MLP).
+"""Model backbone, in torch: the transformer families of the zoo.
 
-Counterpart of ``repro/models/transformer.py`` for ``family="dense"``
-(nemotron, gemma, granite). The other families (``vlm``, ``audio``,
-``moe``, ``rwkv``, ``hybrid``) raise ``NotImplementedError`` naming
-ROADMAP A12.
+Counterpart of ``repro/models/transformer.py`` for the families
+  dense — attention + MLP (nemotron, gemma, granite)
+  vlm   — dense backbone, the first ``n_img_tokens`` positions fed by
+          projected patch embeddings (pixtral's stub frontend;
+          ``batch["patch_embeds"]`` [B, n, d], except in decode)
+  audio — dense backbone over summed codebook embeddings, one logit head
+          per codebook (musicgen's stub frontend; tokens [B, S, C],
+          logits [B, S, C, V])
+  moe   — MLA attention (``mla.py``) + shared and routed experts
+          (``moe.py``); the first ``moe_first_dense`` layers keep a dense
+          MLP (deepseek v2/v3)
+The recurrent families (``rwkv``, ``hybrid``) raise
+``NotImplementedError`` naming ROADMAP A12.
 
 Parameters are a plain dict with the reference's names and its weight
 layout ``[d_in, d_out]`` (``x @ w`` is the reference's
-``einsum("bsd,dq->bsq")``), except that the layers are a list of
-per-layer dicts where the reference stacks them ``[L, ...]`` for
-``lax.scan``: the layers run in a Python loop.
+``einsum("bsd,dq->bsq")``), except that the layers (and moe's
+``dense_layers``) are lists of per-layer dicts where the reference
+stacks them ``[L, ...]`` for ``lax.scan``: the layers run in a Python
+loop. A layer's expert weights stay stacked ``[E, d, F]``.
 :func:`repro_torch.convert.model_params_from_reference` unstacks a
 reference pytree into this form.
 
@@ -24,7 +34,8 @@ Execution modes:
             which are updated IN PLACE (the reference returns new arrays)
 
 Caches keep the reference's layout: ``{"main": {"k", "v"}}`` with leaves
-``[L, B, S, KV, hd]``.
+``[L, B, S, KV, hd]``; MLA's ``{"c", "kr"}`` leaves ``[L, B, S, R]``, and
+moe with dense layers ``{"dense": ..., "main": ...}``.
 """
 from __future__ import annotations
 
@@ -34,16 +45,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mla, moe
 from repro_torch.models.common import (ModelConfig, _init, cross_entropy,
                                        matmul, mlp_apply, mlp_params,
                                        rms_norm)
 
-FAMILY_ITEM = "ROADMAP A12 (model zoo: the non-dense families)"
+FAMILY_ITEM = "ROADMAP A12 (model zoo: the recurrent families)"
+FAMILIES = ("dense", "vlm", "audio", "moe")
 AUX_LOSS_W = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
                                   f"{FAMILY_ITEM}")
 
@@ -51,12 +64,18 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
-def _tf_layer_params(cfg: ModelConfig, *, generator, device):
+def _tf_layer_params(cfg: ModelConfig, *, use_moe: bool, generator,
+                     device):
     kw = dict(generator=generator, device=device)
-    return {"ln1": torch.zeros((cfg.d_model,), dtype=cfg.pdt, device=device),
-            "ln2": torch.zeros((cfg.d_model,), dtype=cfg.pdt, device=device),
-            "attn": attn.attn_params(cfg, **kw),
-            "mlp": mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.pdt, **kw)}
+    p = {"ln1": torch.zeros((cfg.d_model,), dtype=cfg.pdt, device=device),
+         "ln2": torch.zeros((cfg.d_model,), dtype=cfg.pdt, device=device),
+         "attn": (mla.mla_params(cfg, **kw) if cfg.mla
+                  else attn.attn_params(cfg, **kw))}
+    if use_moe:
+        p["moe"] = moe.moe_params(cfg, **kw)
+    else:
+        p["mlp"] = mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.pdt, **kw)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -71,81 +90,150 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     generator = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=generator, device=device)
     d = cfg.d_model
-    return {"final_ln": torch.zeros((d,), dtype=cfg.pdt, device=device),
-            "embed": _init((cfg.vocab, d), cfg.pdt, **kw),
-            "lm_head": _init((d, cfg.vocab), cfg.pdt, **kw),
-            "layers": [_tf_layer_params(cfg, **kw)
-                       for _ in range(cfg.n_layers)]}
+    params: dict[str, Any] = {
+        "final_ln": torch.zeros((d,), dtype=cfg.pdt, device=device)}
+    if cfg.family == "audio":
+        params["embed"] = _init((cfg.n_codebooks, cfg.vocab, d), cfg.pdt,
+                                **kw)
+        params["lm_head"] = _init((cfg.n_codebooks, d, cfg.vocab), cfg.pdt,
+                                  **kw)
+    else:
+        params["embed"] = _init((cfg.vocab, d), cfg.pdt, **kw)
+        params["lm_head"] = _init((d, cfg.vocab), cfg.pdt, **kw)
+    if cfg.family == "vlm":
+        params["patch_proj"] = _init((d, d), cfg.pdt, **kw)
+    use_moe = cfg.family == "moe"
+    n_dense = cfg.moe_first_dense if use_moe else 0
+    if n_dense:
+        params["dense_layers"] = [
+            _tf_layer_params(cfg, use_moe=False, **kw)
+            for _ in range(n_dense)]
+    params["layers"] = [_tf_layer_params(cfg, use_moe=use_moe, **kw)
+                        for _ in range(cfg.n_layers - n_dense)]
+    return params
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _tf_block(x, p, cfg: ModelConfig, *, pos=None, cache=None):
-    """Returns (x, kv_or_cache)."""
+def _tf_block(x, p, cfg: ModelConfig, *, use_moe: bool, pos=None,
+              cache=None):
+    """Returns (x, kv_or_cache, aux); aux is None without experts."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, kv = attn.attention(h, p["attn"], cfg, pos=pos, cache=cache)
+    attn_fn = mla.mla_attention if cfg.mla else attn.attention
+    a, kv = attn_fn(h, p["attn"], cfg, pos=pos, cache=cache)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = mlp_apply(h, p["mlp"]["w_in"], p["mlp"].get("w_gate"),
-                  p["mlp"]["w_out"], cfg.mlp)
-    return x + f, kv
+    aux = None
+    if use_moe:
+        f, aux = moe.moe_ffn(h, p["moe"], cfg)
+    else:
+        f = mlp_apply(h, p["mlp"]["w_in"], p["mlp"].get("w_gate"),
+                      p["mlp"]["w_out"], cfg.mlp)
+    return x + f, kv, aux
 
 
-def embed_inputs(params, batch, cfg: ModelConfig):
+# ---------------------------------------------------------------------------
+# embedding / heads (the modality stubs)
+# ---------------------------------------------------------------------------
+def embed_inputs(params, batch, cfg: ModelConfig, *, decode: bool = False):
     _check_family(cfg)
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    return params["embed"][tokens].to(cfg.adt)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    if cfg.family == "audio":
+        # 0 + e_0 + e_1 + ..., each add in the parameters' dtype
+        emb = params["embed"]
+        x = emb[0][tokens[..., 0]]
+        for i in range(1, cfg.n_codebooks):
+            x = x + emb[i][tokens[..., i]]
+    else:
+        x = params["embed"][tokens]
+    if cfg.family == "vlm" and cfg.n_img_tokens and not decode:
+        # patch embeddings, projected as JAX promotes (f32 embeddings and
+        # bf16 weights multiply in f32), then cast to the embedding dtype
+        pe = torch.as_tensor(batch["patch_embeds"], device=dev)
+        pe = matmul(pe, params["patch_proj"]).to(x.dtype)
+        n = cfg.n_img_tokens
+        x = torch.cat([pe[:, :n], x[:, n:]], dim=1)
+    return x.to(cfg.adt)
 
 
 def lm_logits(params, x, cfg: ModelConfig):
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return matmul(x, params["lm_head"]).float()
+    head = params["lm_head"]
+    if cfg.family == "audio":
+        dt = torch.promote_types(x.dtype, head.dtype)
+        return torch.einsum("bsd,cdv->bscv", x.to(dt), head.to(dt)).float()
+    return matmul(x, head).float()
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _layer_groups(params, cfg: ModelConfig):
+    """(cache key, layers, use_moe) in the order they run."""
+    use_moe = cfg.family == "moe"
+    groups = []
+    if use_moe and params.get("dense_layers"):
+        groups.append(("dense", params["dense_layers"], False))
+    groups.append(("main", params["layers"], use_moe))
+    return groups
+
+
 def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             caches=None, pos=None, last_only: bool = False):
     """Returns (logits, aux_loss, new_caches).
 
     mode='train'  : caches/pos ignored; new_caches is None.
-    mode='prefill': new_caches hold per-layer KV (length S).
+    mode='prefill': new_caches hold per-layer caches (length S).
     mode='decode' : batch tokens have S=1; ``caches`` required and written
                     in place; ``pos`` is the absolute write/attend position.
     last_only     : compute logits for the final position only (prefill
                     serving path — avoids the [B, S, V] tensor).
-    The dense family has no auxiliary loss: aux_loss is a 0 in f32.
+    aux_loss is the experts' load-balance loss summed in f32 over the
+    layers in order (0 without experts).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     decode = mode == "decode"
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, decode=decode)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    main = caches["main"] if decode else None
-    ks, vs = [], []
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
-    for i, p_l in enumerate(params["layers"]):
-        if remat:
-            x = checkpoint(_train_block, x, p_l, cfg, use_reentrant=False)
-            continue
-        c_l = ({"k": main["k"][i], "v": main["v"][i]} if decode else None)
-        x, kv = _tf_block(x, p_l, cfg, pos=pos if decode else None,
-                          cache=c_l)
+    new_caches: dict[str, Any] = {}
+    for name, layers, use_moe in _layer_groups(params, cfg):
+        group = caches[name] if decode else None
+        collected: dict[str, list] = {}
+        acc = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, p_l in enumerate(layers):
+            if remat:
+                x, a = checkpoint(_train_block, x, p_l, cfg, use_moe,
+                                  use_reentrant=False)
+            else:
+                c_l = ({k: v[i] for k, v in group.items()} if decode
+                       else None)
+                x, kv, a = _tf_block(x, p_l, cfg, use_moe=use_moe,
+                                     pos=pos if decode else None,
+                                     cache=c_l)
+                if mode == "prefill":
+                    for k, v in kv.items():
+                        collected.setdefault(k, []).append(v)
+            if a is not None:
+                acc = acc + a
+        aux = aux + acc
         if mode == "prefill":
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            new_caches[name] = {k: torch.stack(v)
+                                for k, v in collected.items()}
     logits = lm_logits(params, x[:, -1:] if last_only else x, cfg)
     if mode == "train":
         return logits, aux, None
     if decode:
         return logits, aux, caches
-    return logits, aux, {"main": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return logits, aux, new_caches
 
 
-def _train_block(x, p, cfg: ModelConfig):
-    return _tf_block(x, p, cfg)[0]
+def _train_block(x, p, cfg: ModelConfig, use_moe: bool):
+    x, _, aux = _tf_block(x, p, cfg, use_moe=use_moe)
+    return x, aux
 
 
 def pad_caches(caches, to_len: int):
@@ -175,9 +263,16 @@ def pad_caches(caches, to_len: int):
 # ---------------------------------------------------------------------------
 def loss_fn(params, batch, cfg: ModelConfig):
     """``(ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux})`` of the train
-    forward, ``batch`` holding ``tokens`` and ``labels`` [B, S]. The dense
-    family only (its aux is 0)."""
+    forward, ``batch`` holding ``tokens`` and ``labels`` [B, S] (audio:
+    [B, S, C], ce the mean of the C codebooks' cross-entropies; vlm also
+    ``patch_embeds``)."""
     logits, aux, _ = forward(params, batch, cfg, mode="train")
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    ce = cross_entropy(logits, labels)
+    if cfg.family == "audio":
+        ce = cross_entropy(logits[:, :, 0], labels[..., 0])
+        for i in range(1, cfg.n_codebooks):
+            ce = ce + cross_entropy(logits[:, :, i], labels[..., i])
+        ce = ce / cfg.n_codebooks
+    else:
+        ce = cross_entropy(logits, labels)
     return ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux}

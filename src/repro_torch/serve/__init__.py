@@ -21,13 +21,14 @@ The stack, bottom-up:
   bundled implementations.
 
 The model-serving half: :func:`prefill_step`, :func:`serve_step` and
-:func:`generate` (the dense family of the model zoo; the rest is ROADMAP
-A12).
+:func:`generate` (the model zoo's dense, vlm, audio and moe families; the
+recurrent ones are ROADMAP A12), and :func:`pick`, the next token from
+logits (greedy or sampled; audio's [B, 1, C]).
 """
 from repro_torch.serve.engine import (MeshCallError, SolveInfo,
                                       SolverEngine, generate,
-                                      matrix_fingerprint, prefill_step,
-                                      serve_step)
+                                      matrix_fingerprint, pick,
+                                      prefill_step, serve_step)
 from repro_torch.serve.frontend import ServeFrontend
 from repro_torch.serve.metrics import (InMemoryMetrics, MetricsTracker,
                                        NullMetrics)
@@ -49,6 +50,7 @@ __all__ = [
     "SolverEngine",
     "generate",
     "matrix_fingerprint",
+    "pick",
     "prefill_step",
     "serve_step",
 ]

@@ -3,10 +3,11 @@ accuracy-targeted SPD solve serving.
 
 Counterpart of ``repro/serve/engine.py``. ``prefill_step`` /
 ``serve_step`` are one full-sequence forward and one decode step of the
-model zoo (the dense family; the others are ROADMAP A12); ``generate`` is
-the host loop around them: prefill a prompt batch, then greedy or sampled
-decoding. ``serve_step`` writes the new position into the caches in
-place (the reference returns new arrays).
+model zoo (the dense, vlm, audio and moe families; the recurrent ones
+are ROADMAP A12); ``generate`` is the host loop around them: prefill a
+prompt batch, then greedy or sampled decoding. ``serve_step`` writes the
+new position into the caches in place (the reference returns new
+arrays).
 
 ``SolverEngine`` is the linear-algebra side: SPD solve requests carry a
 per-request ACCURACY TARGET (decimal digits of relative residual) instead
@@ -49,15 +50,18 @@ from repro_torch.serve.options import SolveOptions, resolve_options
 
 
 def prefill_step(params, batch, cfg: ModelConfig):
-    """Full-sequence forward; returns (last_logits [B, V] f32, caches)."""
+    """Full-sequence forward; returns (last_logits [B, V] f32 (audio:
+    [B, C, V]), caches). ``batch`` holds ``tokens`` (and pixtral's
+    ``patch_embeds``)."""
     logits, _, caches = T.forward(params, batch, cfg, mode="prefill",
                                   last_only=True)
     return logits[:, -1], caches
 
 
 def serve_step(params, caches, tokens, pos, cfg: ModelConfig):
-    """One decode step. tokens: [B, 1]; pos: the absolute position (int).
-    Returns (logits [B, V], caches), the caches updated in place."""
+    """One decode step. tokens: [B, 1] (audio: [B, 1, C]); pos: the
+    absolute position (int). Returns (logits [B, V] (audio: [B, C, V]),
+    caches), the caches updated in place."""
     logits, _, caches = T.forward(params, {"tokens": tokens}, cfg,
                                   mode="decode", caches=caches, pos=pos)
     return logits[:, 0], caches
@@ -66,32 +70,39 @@ def serve_step(params, caches, tokens, pos, cfg: ModelConfig):
 def generate(params, prompt_batch, cfg: ModelConfig, *, n_tokens: int,
              temperature: float = 0.0, rng=None):
     """Greedy (``temperature == 0``) or sampled generation: prefill the
-    prompt batch, then ``n_tokens - 1`` decode steps. Runs where the
-    parameters lie. ``rng`` is a ``torch.Generator`` on that device, needed
-    for sampling. Returns the new tokens, [B, n_tokens] int64."""
+    prompt batch (all of it: pixtral's ``patch_embeds`` too), then
+    ``n_tokens - 1`` decode steps. Runs where the parameters lie. ``rng``
+    is a ``torch.Generator`` on that device, needed for sampling. Returns
+    the new tokens, [B, n_tokens] int64 (audio: [B, n_tokens, C])."""
     S = prompt_batch["tokens"].shape[1]
     last, caches = prefill_step(params, prompt_batch, cfg)
     caches = T.pad_caches(caches, S + n_tokens)
     outs = []
-    tok = _pick(last, temperature, rng)
+    tok = pick(last, cfg, temperature, rng)
     outs.append(tok)
     for i in range(1, n_tokens):
         logits, caches = serve_step(params, caches, tok, S + i - 1, cfg)
-        tok = _pick(logits, temperature, rng)
+        tok = pick(logits, cfg, temperature, rng)
         outs.append(tok)
     return torch.cat(outs, dim=1)
 
 
-def _pick(logits, temperature, rng):
-    """logits: [B, V] -> next token [B, 1]: argmax, or a draw from
-    ``softmax(logits / temperature)`` with ``rng`` (the reference folds
-    the step index into its key; a generator advances instead)."""
+def pick(logits, cfg: ModelConfig, temperature=0.0, rng=None):
+    """logits: [B, V] (audio: [B, C, V]) -> next token [B, 1] (audio:
+    [B, 1, C]): argmax, or a draw from ``softmax(logits / temperature)``
+    with ``rng`` (the reference folds the step index into its key; a
+    generator advances instead)."""
     if temperature > 0:
         if rng is None:
             raise ValueError("sampling (temperature > 0) needs rng")
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=rng)
-    return torch.argmax(logits, dim=-1)[:, None]
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                generator=rng).reshape(probs.shape[:-1])
+    else:
+        tok = torch.argmax(logits, dim=-1)
+    if cfg.family == "audio":
+        return tok[:, None, :]
+    return tok[:, None]
 
 
 def matrix_fingerprint(a, samples: int = 8):
