@@ -33,15 +33,17 @@ result line. Phases:
    for the rest), int8 bitwise against its exact sums' epilogue and the f32
    sums bitwise ``qgemm``'s;
    ``flash_attention`` at tests/test_flash.py's shapes in f32, bf16 and
-   f16, every dense head dim 16 .. 256, S != T and a full call, a strided
-   16-bit view and two refused ones, and at every
+   f16, every head dim 16 .. 256 (80 included), S != T and a full call,
+   a strided 16-bit view and two refused ones, and at every
    prefill shape of phase 8: gemma-2b's 4 x 2048, 1 x 8192 and 4 x 1023
    (H = 8, KV = 1, hd = 256, bf16) and 2 x 256 .. 263 (f32),
    nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48, KV = 8, hd = 128),
    and hd = 192; the vlm, audio and moe phases' (MLA's H = KV = 16 and
    128 at hd 192, pixtral's H 32, KV 8, hd 128, musicgen's H = KV = 32,
    hd 64; their contracts' length 1023, the f32 runs' 2 x 256 .. 263,
-   the smoke configs' 2 x 48), the four timed beside SDPA; each case
+   the smoke configs' 2 x 48), the four timed beside SDPA, and zamba2's
+   hd 80 (H = KV = 32) at 4 x 2048 in bf16, f16 and f32, timed, and at
+   its contract's and f32 runs' lengths; each case
    against the derived worst-case atol and a
    data-scaled one, 256 u max|v|, and each 16-bit case to a share of
    rounded outputs that differ from the plain version's, which a one-pass
@@ -240,16 +242,25 @@ result line. Phases:
    embeddings, 16 new tokens, contract at 2 x 1024; ``generate_audio``:
    musicgen-large uncut (48 layers), 4 x 2048 frames of 4 codebooks, 32
    new frames, contract at 4 x 1024. Each prefill launches flash n_layers
-   times on flash_tc. ``token_exact_f32``: gemma-2b, pixtral-12b,
-   musicgen-large and deepseek-v2-lite-16b at full width with 2 layers in
-   f32 (2 x 256; pixtral 2 x 512, text after its 256 patch positions):
-   generate equals teacher-forced greedy over 8 tokens
-   (tests/test_serve.py:14-41), and the contract at 5e-4.
+   times on flash_tc. Then the recurrent families, uncut, bf16, their
+   zero-initialised leaves drawn nonzero: ``generate_rwkv``: rwkv6-3b
+   (32 layers), 4 x 1024 with 32 new tokens, no flash launch (no kernel
+   of the repository is on its path), contract at 4 x 1024;
+   ``generate_hybrid``: zamba2-2.7b (54 Mamba-2 blocks and the shared
+   attention block 6 times, hd 80), 4 x 2048 with 32, flash 6 times a
+   prefill on flash_tc, and its contract as 128 teacher-forced steps
+   after a prefix of 896 (the SSD's and attention's length rules refuse
+   1023), every step against the prefill of 1024. ``token_exact_f32``:
+   gemma-2b, pixtral-12b, musicgen-large, deepseek-v2-lite-16b, rwkv6-3b
+   and zamba2-2.7b at full width with 2 layers in f32 (2 x 256; pixtral
+   2 x 512, text after its 256 patch positions; zamba2 2 x 120 and its
+   contract 128 + 128): generate equals teacher-forced greedy over 8
+   tokens (tests/test_serve.py:14-41), and the contract at 5e-4.
    ``model_cpu_agreement``: prefill logits of the smoke configs of
    gemma-2b, granite-34b, nemotron-4-15b, pixtral-12b, musicgen-large,
-   deepseek-v2-lite-16b and deepseek-v3-671b (the last two at
-   nope_head_dim 48: the flash kernels have no head dim 48) on the card
-   against the port on the CPU.
+   deepseek-v2-lite-16b, deepseek-v3-671b (the two at nope_head_dim 48:
+   the flash kernels have no head dim 48), rwkv6-3b and zamba2-2.7b on
+   the card against the port on the CPU.
 9. ``cpu_agreement``: each ladder's factor on the card against the same
    port run on the CPU at n = 2048, both engines.
 10. ``train``: gemma-2b full (18 layers, d 2048, d_ff 16384, vocab 256000,
@@ -405,8 +416,16 @@ GRID = {"int8": 1 / 127, "f16": 2.0 ** -10, "bf16": 2.0 ** -7, "f32": 1e-5,
         "f64": 1e-12}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; on stderr, the seconds since the script
+    started and the line's phase (where the time of a run went)."""
     print(json.dumps(obj), flush=True)
+    print(f"[{time.perf_counter() - _T0:8.1f} s] {obj.get('phase', '')} "
+          f"{obj.get('name', obj.get('arch', ''))}", file=sys.stderr,
+          flush=True)
 
 
 def card_rates(name: str) -> dict:
@@ -1722,9 +1741,10 @@ def kernel_flash(rates, gen):
     KV = 1, hd = 256, bf16), its contract's 4 x 1023, the f32 2-layer
     run's 2 x 256 .. 263, nemotron-4-15b's 1 x 4096 and 1 x 1023 (H = 48,
     KV = 8, hd = 128), and hd = 192 (nemotron-4-340b's, G = 12); the
-    vlm, audio and moe phases' (_ZOO_TIMED, _ZOO_PREFILLS); times of
-    each route's kernel, the plain version and SDPA beside the card's
-    least time."""
+    vlm, audio and moe phases' (_ZOO_TIMED, _ZOO_PREFILLS), and
+    zamba2-2.7b's hd 80 (H = KV = 32) on both routes, timed at its
+    prefill (_HD80_TIMED) in bf16, f16 and f32; times of each route's
+    kernel, the plain version and SDPA beside the card's least time."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash, ref
     checks = []
@@ -1806,6 +1826,13 @@ def kernel_flash(rates, gen):
         chk, zoo[arch] = timed(gen, *shape, bf, 10)
         checks.append(chk)
         torch.cuda.empty_cache()
+    # zamba2's shared attention block, hd 80, on both routes
+    hd80 = {}
+    for dt, reps in ((bf, 20), (f16, 20), (f32, 10)):
+        chk, hd80[_TNAME[dt]] = timed(gen, *_HD80_TIMED, dt, reps)
+        checks.append(chk)
+        torch.cuda.empty_cache()
+    zoo["zamba2-2.7b"] = {**hd80.pop("bf16"), **hd80}
     return checks, {**main, "f16": f16_t, "f32": f32_t,
                     "nemotron-4-15b": gqa, **zoo, "refusals": refusals}
 
@@ -1816,17 +1843,25 @@ _ZOO_TIMED = {"deepseek-v2-lite-16b": (4, 2048, 16, 16, 192),
               "deepseek-v3-671b": (1, 4096, 128, 128, 192),
               "pixtral-12b": (2, 4096, 32, 8, 128),
               "musicgen-large": (4, 2048, 32, 32, 64)}
-#: their other prefills: each contract's length - 1, the f32 2-layer
-#: runs' 2 x 256 .. 263 (pixtral's 2 x 512 .. 519), the smoke configs'
-#: 2 x 48 on the card
+#: zamba2-2.7b's timed prefill (B, S, H, KV, hd): its shared attention
+#: block, d 2560 over 32 heads of 80
+_HD80_TIMED = (4, 2048, 32, 32, 80)
+#: their other prefills: each contract's length - 1 (zamba2's: its
+#: prefix of 896 and the full 1024), the f32 2-layer runs' 2 x 256 ..
+#: 263 (pixtral's 2 x 512 .. 519; zamba2's 2 x 120 .. 127, 128 and 256),
+#: the smoke configs' 2 x 48 on the card
 _ZOO_PREFILLS = (
     [(4, 1023, 16, 16, 192, torch.bfloat16),
      (1, 1023, 128, 128, 192, torch.bfloat16),
      (2, 1023, 32, 8, 128, torch.bfloat16),
-     (4, 1023, 32, 32, 64, torch.bfloat16)]
+     (4, 1023, 32, 32, 64, torch.bfloat16),
+     (4, 896, 32, 32, 80, torch.bfloat16),
+     (4, 1024, 32, 32, 80, torch.bfloat16)]
     + [(2, S, H, KV, hd, torch.float32) for (S, H, KV, hd) in (
         (256, 16, 16, 192), (263, 16, 16, 192), (512, 32, 8, 128),
-        (519, 32, 8, 128), (256, 32, 32, 64), (263, 32, 32, 64))]
+        (519, 32, 8, 128), (256, 32, 32, 64), (263, 32, 32, 64),
+        (120, 32, 32, 80), (127, 32, 32, 80), (128, 32, 32, 80),
+        (256, 32, 32, 80))]
     + [(2, 48, H, KV, hd, torch.float32)
        for (H, KV, hd) in ((4, 2, 16), (4, 4, 16), (4, 4, 64))])
 
@@ -2336,23 +2371,34 @@ def _profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device events are summed from the trace's raw events: building
+    # key_averages' event tree takes minutes at rwkv6's ~10^6 host events
+    # a prefill, and a kernel's self device time is its duration
     by, booked, events, sentinels, ranges = {}, {}, 0, 0, {}
-    for ev in prof.key_averages():
-        if ev.key in _RANGES:
-            if ev.device_type == torch.autograd.DeviceType.CPU:
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    has_range = False
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if name in _RANGES:
+            has_range = has_range or ev.device_type() == cpu
+            continue
+        if ev.device_type() != cuda:
+            continue
+        if "spin_kernel" in name:
+            sentinels += 1
+            continue
+        key = next((k for frag, k in _SPANS if frag in name),
+                   "other (torch ops)")
+        by[key] = by.get(key, 0.0) + ev.duration_ns() / 1e6
+        booked[key] = booked.get(key, 0) + 1
+        events += 1
+    if has_range:
+        # a range's device time is that of the kernels launched inside
+        # it: key_averages' tree attributes them
+        for ev in prof.key_averages():
+            if ev.key in _RANGES and ev.device_type == cpu:
                 ranges[ev.key] = {"calls": ev.count,
                                   "device_ms": ev.device_time_total / 1e3}
-            continue
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "spin_kernel" in ev.key:
-            sentinels += ev.count
-            continue
-        key = next((k for frag, k in _SPANS if frag in ev.key),
-                   "other (torch ops)")
-        by[key] = by.get(key, 0.0) + ev.self_device_time_total / 1e3
-        booked[key] = booked.get(key, 0) + ev.count
-        events += ev.count
     launched = {k: v - before[k] for k, v in ops.LAUNCHES.items()
                 if v > before[k]}
     unseen = {k: {"launches": v, "device_events": booked.get(k, 0)}
@@ -3306,15 +3352,69 @@ def cpu_agreement(name, n, seed, engine="blocked"):
 # ---------------------------------------------------------------------------
 # phase 9: model serving, the dense transformer family
 # ---------------------------------------------------------------------------
+def nonzero_leaves(cfg, params, seed):
+    """Draw anew, in place, the leaves that init sets to zero or one in
+    the recurrent families, as tests/test_torch_recurrent.py draws them
+    (rwkv's ``mu``, ``mu_c`` in (0.05, 0.95), ``w0`` in (-1, 1), ``u``
+    N(0, 1), ``ln_x`` 0.2 N(0, 1); mamba's ``A_log`` 0.5 N(0, 1), ``D`` in
+    (0.5, 1.5), ``dt_bias`` 0.5 N(0, 1)), from a generator seeded with
+    ``seed`` on their device: at zero the token shift is a no-op and the
+    bonus vanishes, so a wrong carry would pass every contract. Other
+    families are left as they are."""
+    if cfg.family == "rwkv":
+        draws = {"mu": ("uniform", 0.05, 0.95), "mu_c": ("uniform", 0.05,
+                                                         0.95),
+                 "w0": ("uniform", -1.0, 1.0), "u": ("normal", 0.0, 1.0),
+                 "ln_x": ("normal", 0.0, 0.2)}
+    elif cfg.family == "hybrid":
+        draws = {"A_log": ("normal", 0.0, 0.5), "D": ("uniform", 0.5, 1.5),
+                 "dt_bias": ("normal", 0.0, 0.5)}
+    else:
+        return
+    g = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    for layer in params["layers"]:
+        for key, (kind, a, b) in draws.items():
+            t = torch.empty(layer[key].shape, dtype=torch.float32,
+                            device=layer[key].device)
+            if kind == "uniform":
+                t.uniform_(a, b, generator=g)
+            else:
+                t.normal_(a, b, generator=g)
+            layer[key].copy_(t)
+
+
+def _tree_map(fn, node):
+    """fn on every tensor of nested dicts and lists of parameters."""
+    if isinstance(node, dict):
+        return {k: _tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_map(fn, v) for v in node]
+    return fn(node)
+
+
+def flash_per_prefill(cfg) -> int:
+    """flash_attention launches of one prefill: one per attention layer,
+    none for rwkv, and for the hybrid the shared block's applications,
+    ``max(L // attn_every, 1)`` (the reference's ``_forward_hybrid``)."""
+    if cfg.family == "rwkv":
+        return 0
+    if cfg.family == "hybrid":
+        return max(cfg.n_layers // (cfg.attn_every or cfg.n_layers), 1)
+    return cfg.n_layers
+
+
 def _model(arch, seed, **overrides):
     """``arch``'s full config (with ``overrides``) and random weights drawn
-    on the card from a generator seeded with ``seed``."""
+    on the card from a generator seeded with ``seed`` (the recurrent
+    families' zero-initialised leaves drawn nonzero, :func:`nonzero_leaves`,
+    with ``seed + 1``)."""
     from repro_torch import configs
     from repro_torch.models import transformer as T
     cfg = configs.get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
     params = T.init_params(cfg, seed=seed, device="cuda")
+    nonzero_leaves(cfg, params, seed + 1)
     nbytes = 0
     stack = [params]
     while stack:
@@ -3367,12 +3467,13 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
     then the same loop timed: prefill_step by CUDA events, each serve_step
     on the host clock between synchronizations; with ``profile``, one more
     prefill and decode step under torch.profiler. Every prefill must
-    launch flash_attention once per layer, on the route of the model's
-    dtype; every logit must be finite."""
+    launch flash_attention :func:`flash_per_prefill` times (once per
+    attention layer), on the route of the model's dtype; every logit must
+    be finite."""
     from repro_torch import serve
     from repro_torch.models import transformer as T
     prompt = _prompt_batch(cfg, batch, prompt_len, seed)
-    L = cfg.n_layers
+    L = flash_per_prefill(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = flash_launches(cfg.adt)
@@ -3385,7 +3486,8 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
     what = f"{label} {cfg.name} B={batch} S={prompt_len}"
     if flash_gen != L:
         raise AssertionError(f"{what}: generate launched flash_attention "
-                             f"{flash_gen} times, not n_layers = {L}")
+                             f"{flash_gen} times, not {L} (one a prefill "
+                             "per attention layer)")
     if (tuple(out.shape) != _token_shape(cfg, batch, n_new)
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab):
         raise AssertionError(f"{what}: bad tokens {tuple(out.shape)}")
@@ -3417,7 +3519,7 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
     if not all(finite):
         raise AssertionError(f"{what}: non-finite logits")
     step_ms = statistics.median(steps)
-    line = {"phase": label, "arch": cfg.name, "n_layers": L,
+    line = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
             "dtype": cfg.activ_dtype, "param_gib": param_gib,
             "batch": batch, "prompt_len": prompt_len, "new_tokens": n_new,
             "generate_s": gen_s,
@@ -3429,6 +3531,7 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
             "decode_ms_per_step_max": max(steps),
             "decode_tok_per_s": batch / step_ms * 1e3,
             "peak_gib": peak, "flash_launches_per_prefill": flash_prefill,
+            "flash_head_dim": cfg.hd if L else None,
             "logits_finite": True,
             "timed_loop_tokens_equal_generate": torch.equal(
                 torch.cat(toks, dim=1), out)}
@@ -3463,10 +3566,21 @@ def generate_run(label, cfg, params, param_gib, batch, prompt_len, n_new,
 #: the gates from each run's own probabilities): the ceiling's
 #: derivation holds again, and the flips that the runs' own routers
 #: would have made are reported beside the reading, not gated.
+#: zamba2's contract is 128 teacher-forced steps after a prefix of 896
+#: (:func:`decode_contract_steps`): its reading is the largest gap over
+#: the 129 positions compared, which grows with the steps (0.148 at the
+#: first, 1.56 at the last) as the bf16 roundings of the two paths travel
+#: through the recurrent states and the KV cache; 3 x the reading is
+#: above the ceiling, which then gates it. Its line reports the bf16
+#: prefill's own distance from the same prefill on f32 weights: 2.66 at
+#: these seeds (this script on an NVIDIA H100 80GB HBM3 at 700 W), more
+#: than the decode's gap, which is the bf16 model's own noise.
 _BF16_CONTRACT_READ = {"gemma-2b": 0.07421875, "nemotron-4-15b": 0.03125,
                        "deepseek-v2-lite-16b": 0.6171875,
                        "deepseek-v3-671b": 0.095703125,
-                       "pixtral-12b": 0.109375, "musicgen-large": 1.25}
+                       "pixtral-12b": 0.109375, "musicgen-large": 1.25,
+                       "rwkv6-3b": 0.107421875,
+                       "zamba2-2.7b": 1.5859375}
 
 
 @contextlib.contextmanager
@@ -3545,13 +3659,7 @@ def decode_contract(label, cfg, params, batch, length, seed):
         raise AssertionError(f"{what}: non-finite logits")
     err = float((dec - full).abs().max())
     scale = float(full.abs().max())
-    if cfg.activ_dtype == "f32":
-        tol, how = 5e-4, "5e-4, the reference's contract"
-    else:
-        read = _BF16_CONTRACT_READ[cfg.name]
-        tol = min(2 * cfg.n_layers * 2.0 ** -8 * scale, 3 * read)
-        how = ("min(2 L 2^-8 max|logits|, 3 x the sound runs' reading "
-               f"{read:g})")
+    tol, how = _contract_gate(cfg, scale)
     line = {"phase": f"{label}_decode_vs_prefill", "arch": cfg.name,
             "n_layers": cfg.n_layers, "dtype": cfg.activ_dtype,
             "batch": batch, "length": length, "max_abs_err": err,
@@ -3567,6 +3675,79 @@ def decode_contract(label, cfg, params, batch, length, seed):
     if not err < tol:
         raise AssertionError(f"{what}: {err:g} >= {tol:g} ({how}); {line}")
     del caches
+    torch.cuda.empty_cache()
+    return line
+
+
+def _contract_gate(cfg, scale):
+    """(tol, how) of a decode-vs-prefill contract whose prefill logits
+    reach ``scale``: the reference's 5e-4 in f32; in bf16 the smaller of
+    the ceiling 2 L 2^-8 scale and 3 x the reading in
+    :data:`_BF16_CONTRACT_READ`."""
+    if cfg.activ_dtype == "f32":
+        return 5e-4, "5e-4, the reference's contract"
+    read = _BF16_CONTRACT_READ[cfg.name]
+    return (min(2 * cfg.n_layers * 2.0 ** -8 * scale, 3 * read),
+            f"min(2 L 2^-8 max|logits|, 3 x the sound runs' reading {read:g})")
+
+
+def decode_contract_steps(label, cfg, params, batch, prefix, steps, seed):
+    """The decode contract in the form the hybrid's prefills allow (the
+    SSD takes at most 128 positions or a multiple of 128, and attention
+    over more than 1024 keys a multiple of 1024, so neither length - 1
+    nor 1024 + 128): prefill ``prefix`` tokens, then ``steps``
+    teacher-forced decode steps over the rest of a prompt of ``prefix +
+    steps`` tokens; the prefix's last logits and every step's against the
+    full prompt's prefill at the same positions, gated as
+    :func:`decode_contract`."""
+    from repro_torch import serve
+    from repro_torch.models import transformer as T
+    length = prefix + steps
+    prompt = _prompt_batch(cfg, batch, length, seed)
+    full = T.forward(params, prompt, cfg, mode="prefill")[0]
+    last, caches = serve.prefill_step(params, _prefix(prompt, prefix), cfg)
+    caches = T.pad_caches(caches, length)
+    errs = [float((last - full[:, prefix - 1]).abs().max())]
+    agree = [(last.argmax(-1) == full[:, prefix - 1].argmax(-1)).float()]
+    finite = bool(torch.isfinite(full).all()) and bool(
+        torch.isfinite(last).all())
+    for j in range(steps):
+        p = prefix + j
+        dec, _ = serve.serve_step(params, caches,
+                                  prompt["tokens"][:, p:p + 1], p, cfg)
+        finite = finite and bool(torch.isfinite(dec).all())
+        errs.append(float((dec - full[:, p]).abs().max()))
+        agree.append((dec.argmax(-1) == full[:, p].argmax(-1)).float())
+    what = f"{label} {cfg.name} decode vs prefill"
+    if not finite:
+        raise AssertionError(f"{what}: non-finite logits")
+    err = max(errs)
+    scale = float(full[:, prefix - 1:].abs().max())
+    tol, how = _contract_gate(cfg, scale)
+    full = full[:, prefix - 1:]
+    gap = None
+    if cfg.activ_dtype != "f32":
+        # the same prefill on an f32 copy of the weights: how far the
+        # 16-bit model itself is from f32 at these positions, beside the
+        # decode's gap from its own prefill (reported, not gated)
+        c32 = cfg.replace(param_dtype="f32", activ_dtype="f32")
+        p32 = _tree_map(lambda t: t.float(), params)
+        gap = float((T.forward(p32, prompt, c32, mode="prefill")[0][
+            :, prefix - 1:] - full).abs().max())
+        del p32
+    line = {"phase": f"{label}_decode_vs_prefill", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "dtype": cfg.activ_dtype,
+            "batch": batch, "prefix": prefix, "decode_steps": steps,
+            "length": length, "max_abs_err": err,
+            "max_abs_err_prefix_last": errs[0],
+            "max_abs_err_first_step": errs[1],
+            "max_abs_err_last_step": errs[-1],
+            "max_abs_logit": scale, "tol": tol, "tol_is": how,
+            "argmax_agree_share": float(torch.cat(agree).mean()),
+            "prefill_vs_f32_weights_max_abs": gap}
+    if not err < tol:
+        raise AssertionError(f"{what}: {err:g} >= {tol:g} ({how}); {line}")
+    del caches, full
     torch.cuda.empty_cache()
     return line
 
@@ -3610,14 +3791,9 @@ def model_cpu_agreement(arch, seed):
     over = _SMOKE_OVERRIDES.get(arch, {})
     cfg = cfg.replace(**over)
     pc = T.init_params(cfg, seed=seed, device="cpu")
+    nonzero_leaves(cfg, pc, seed + 1)
 
-    def to_card(node):
-        if isinstance(node, dict):
-            return {k: to_card(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_card(v) for v in node]
-        return node.cuda()
-    pg = to_card(pc)
+    pg = _tree_map(lambda t: t.cuda(), pc)
     bc = _prompt_batch(cfg, 2, 48, seed, device="cpu")
     lc = T.forward(pc, bc, cfg, mode="prefill")[0]
     lg = T.forward(pg, {k: v.cuda() for k, v in bc.items()}, cfg,
@@ -4628,19 +4804,51 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # the recurrent families, uncut, bf16, random weights (the leaves
+    # that init sets to zero or one drawn nonzero)
+    cfg, params, gib = _model("rwkv6-3b", 975)
+    note = ("rwkv6's path runs no kernel of the repo: the reference's "
+            "recurrence is a lax.scan, not Pallas, and runs here in plain "
+            "torch, one step a position and layer")
+    drive("generate_rwkv", (),
+          [lambda: generate_run("generate_rwkv", cfg, params, gib, 4, 1024,
+                                32, 976, note=note, profile=True),
+           lambda: decode_contract("generate_rwkv", cfg, params, 4, 1024,
+                                   977)])
+    del params
+    torch.cuda.empty_cache()
+    cfg, params, gib = _model("zamba2-2.7b", 980)
+    drive("generate_hybrid", ("flash_attention",),
+          [lambda: generate_run("generate_hybrid", cfg, params, gib, 4, 2048,
+                                32, 981, profile=True),
+           lambda: decode_contract_steps("generate_hybrid", cfg, params, 4,
+                                         896, 128, 982)])
+    del params
+    torch.cuda.empty_cache()
+
     # f32 at 2 layers: generate == teacher-forced greedy for each family
-    # (deepseek-v2-lite: its dense layer and one MoE layer)
+    # (deepseek-v2-lite: its dense layer and one MoE layer; zamba2: two
+    # mamba blocks and one application of the shared block)
     def exact_runs(arch, seed):
         cfg, params, _ = _model(arch, seed, n_layers=2, param_dtype="f32",
                                 activ_dtype="f32")
-        # a vlm prompt no longer than n_img_tokens is all patches, and so
-        # is its prefix's prefill, which the stub fills to n_img_tokens
-        # positions: the contract needs text after the patches
-        S = 2 * cfg.n_img_tokens if cfg.family == "vlm" else 256
-        out = [token_exact("token_exact_f32", cfg, params, 2, S, 8,
-                           seed + 1),
-               decode_contract("token_exact_f32", cfg, params, 2, S,
-                               seed + 2)]
+        if cfg.family == "hybrid":
+            # the SSD takes at most 128 positions or a multiple of 128:
+            # the teacher-forced prefills stay in one chunk, and the
+            # contract is 128 + 128
+            out = [token_exact("token_exact_f32", cfg, params, 2, 120, 8,
+                               seed + 1),
+                   decode_contract_steps("token_exact_f32", cfg, params, 2,
+                                         128, 128, seed + 2)]
+        else:
+            # a vlm prompt no longer than n_img_tokens is all patches, and
+            # so is its prefix's prefill, which the stub fills to
+            # n_img_tokens positions: the contract needs text after them
+            S = 2 * cfg.n_img_tokens if cfg.family == "vlm" else 256
+            out = [token_exact("token_exact_f32", cfg, params, 2, S, 8,
+                               seed + 1),
+                   decode_contract("token_exact_f32", cfg, params, 2, S,
+                                   seed + 2)]
         del params
         torch.cuda.empty_cache()
         return out
@@ -4648,13 +4856,15 @@ def main() -> int:
           [lambda arch=arch, seed=seed: exact_runs(arch, seed)
            for arch, seed in (("gemma-2b", 920), ("pixtral-12b", 960),
                               ("musicgen-large", 964),
-                              ("deepseek-v2-lite-16b", 968))])
+                              ("deepseek-v2-lite-16b", 968),
+                              ("rwkv6-3b", 972), ("zamba2-2.7b", 984))])
     emit({"phase": "model_cpu_agreement",
           "runs": [model_cpu_agreement(arch, 930 + i) for i, arch in
                    enumerate(("gemma-2b", "granite-34b", "nemotron-4-15b",
                               "pixtral-12b", "musicgen-large",
                               "deepseek-v2-lite-16b",
-                              "deepseek-v3-671b"))]})
+                              "deepseek-v3-671b", "rwkv6-3b",
+                              "zamba2-2.7b"))]})
     emit(path_run("f32x3_f64", 4096, 300))
     line = breakdown("f16x3_f32", N_MAIN, 500)
     # the kernel phase's trsm_leaf times at the tree's M, 32 calls each,

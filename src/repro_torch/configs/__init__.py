@@ -1,6 +1,6 @@
 """Architecture registry: --arch <id> resolves here (the port's own copy
 of ``repro/configs``, pure data importing the port's ``ModelConfig``;
-the port runs the ``dense``, ``vlm``, ``audio`` and ``moe`` families).
+the port runs every family of them).
 
 Each module defines full() (the exact published config) and smoke()
 (a reduced same-family config for CPU tests). SHAPES lists the assigned

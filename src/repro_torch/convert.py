@@ -132,8 +132,10 @@ def model_params_from_reference(params, cfg, device="cuda"):
     takes; bf16 crosses through its 16-bit pattern). The stacked
     ``layers`` (and moe's ``dense_layers``) leaves ``[L, ...]`` are split
     into per-layer dicts; a layer's expert stacks ``[E, d, F]`` stay
-    stacked and the router stays f32. The transformer families only: the
-    recurrent ones are ROADMAP A12."""
+    stacked and the router stays f32. Every family: rwkv's layers carry
+    ``mu`` [5, d], ``mu_c`` [2, d] and ``u`` [H, N]; the hybrid's mamba
+    layers ``A_log``, ``D`` and ``dt_bias`` [H], and its ``shared_attn``
+    (one layer, not stacked) stays one dict."""
     _check_family(cfg)
     out = {k: _map(lambda a: _tensor(a, device), v)
            for k, v in params.items() if k not in _STACKED}

@@ -458,9 +458,9 @@ extern "C" int smem_table(int i, const char** name, int* bytes, int* bound) {
 #define RETURN_LAUNCH_STATUS() return (int)cudaGetLastError()
 
 // Head-dim dispatch of the attention entry points: returns the call, an
-// expression in the constant HD, at HD = hd for each head dim of the dense
-// configs (16 and 32 for the smoke configs, 64, 128, 192, 256), and
-// cudaErrorInvalidValue for any other hd.
+// expression in the constant HD, at HD = hd for each head dim of the zoo
+// (16 and 32 for the smoke configs, 64, 80 (zamba2's shared attention),
+// 128, 192, 256), and cudaErrorInvalidValue for any other hd.
 #define HEAD_DIM_CASE(D, ...) \
   case D: {                   \
     constexpr int HD = D;     \
@@ -471,6 +471,7 @@ extern "C" int smem_table(int i, const char** name, int* bytes, int* bound) {
     HEAD_DIM_CASE(16, __VA_ARGS__)                                                         \
     HEAD_DIM_CASE(32, __VA_ARGS__)                                                         \
     HEAD_DIM_CASE(64, __VA_ARGS__)                                                         \
+    HEAD_DIM_CASE(80, __VA_ARGS__)                                                         \
     HEAD_DIM_CASE(128, __VA_ARGS__)                                                        \
     HEAD_DIM_CASE(192, __VA_ARGS__)                                                        \
     HEAD_DIM_CASE(256, __VA_ARGS__)                                                        \

@@ -37,9 +37,10 @@
 // columns tx + 16 c, all in registers, with f32 SIMT FMAs; the row max and
 // sum are reduced across the 16 threads of a row with shuffles. At hd = 256
 // the shared memory is 146 KiB (the q tile and the k/v buffer 65 KiB each,
-// p 16 KiB), above the 48 KiB default, hence cudaFuncSetAttribute. f32 on
-// the tensor cores (TF32) would round q, k, p and v to 10 bits, so this
-// route stays on the CUDA cores.
+// p 16 KiB), above the 48 KiB default, hence cudaFuncSetAttribute; at
+// zamba2's hd = 80 it is 57 KiB, and a thread keeps 4 x 5 accumulators.
+// f32 on the tensor cores (TF32) would round q, k, p and v to 10 bits, so
+// this route stays on the CUDA cores.
 #include "common.cuh"
 
 namespace {
@@ -194,7 +195,7 @@ int launch(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll kss,
 
 }  // namespace
 
-// hd is one of the dense configs' head dims (DISPATCH_HEAD_DIM); any other
+// hd is one of the zoo's head dims (DISPATCH_HEAD_DIM); any other
 // returns cudaErrorInvalidValue.
 extern "C" int flash_attention_f32(const void* q, ll qsb, ll qss, ll qsh, const void* k,
                                    ll ksb, ll kss, ll ksh, const void* v, ll vsb, ll vss,

@@ -57,11 +57,15 @@
 //   takes its turn and releases their stages. The output is written from
 //   registers, masked at S.
 //
-// Shared memory: TMA boxes of hd or 64 columns (the widest row a swizzle
-// can take: 128 bytes), one region per box; a row of BOXD columns is one
-// swizzle row, so the wgmma descriptors use the swizzle of BOXD * 2 bytes:
-// 32 (hd 16), 64 (hd 32) or 128 bytes (hd >= 64). At hd = 256 that is
-// Q 64 KiB + 2 x (K 32 + V 32) KiB = 192 KiB.
+// Shared memory: TMA boxes of BOXD columns, the widest of 64, 32 and 16
+// that divides hd (64 columns, 128 bytes, is the widest row a swizzle can
+// take), one region per box; a row of BOXD columns is one swizzle row, so
+// the wgmma descriptors use the swizzle of BOXD * 2 bytes: 32 (hd 16 and
+// 80), 64 (hd 32) or 128 bytes (hd 64, 128, 192, 256). hd 80 is five boxes
+// of 16 columns: S = Q K^T takes one box a k-step and P V one m64n16 wgmma
+// a box, so the head dims of the dense configs keep the boxes they had. At
+// hd = 256 that is Q 64 KiB + 2 x (K 32 + V 32) KiB = 192 KiB; at hd = 80,
+// Q 20 KiB + 2 x (K 20 + V 20) KiB = 100 KiB.
 #pragma once
 
 #include <type_traits>
@@ -83,7 +87,8 @@ struct FtcCfg {
   static constexpr int BM = 64 * NC;         // q rows of a CTA
   static constexpr int BKV = HD <= 128 ? 128 : 64;  // kv rows of a block
   static constexpr int ST = 2;               // stages of the K/V ring
-  static constexpr int BOXD = HD < 64 ? HD : 64;    // columns of a TMA box
+  // columns of a TMA box: the widest of 64, 32 and 16 that divides HD
+  static constexpr int BOXD = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int NB = HD / BOXD;       // boxes of a row
   static constexpr int ROWB = BOXD * 2;      // bytes of a swizzle row
   static constexpr int SWZ = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // descriptor code
@@ -557,7 +562,7 @@ int launch_tc(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb, ll k
 
 }  // namespace
 
-// hd is one of the dense configs' head dims (DISPATCH_HEAD_DIM); any other
+// hd is one of the zoo's head dims (DISPATCH_HEAD_DIM); any other
 // returns cudaErrorInvalidValue. Strides are in elements.
 #define FLASH_TC_ENTRY(NAME, BF)                                                            \
   extern "C" int NAME(const void* q, ll qsb, ll qss, ll qsh, const void* k, ll ksb,        \

@@ -37,8 +37,9 @@ from repro_torch.kernels.ref import FLASH_BK
 
 _SUFFIX = {torch.float32: "f32", DTYPES["bf16"]: "bf16",
            DTYPES["f16"]: "f16"}
-#: the head dims the kernel is built for: every dense config's
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+#: the head dims the kernel is built for: every dense config's, and
+#: zamba2's 80 (its shared attention block: d 2560 over 32 heads)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
 _FNS: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGS = (_P, _L, _L, _L) * 4 + (_I,) * 6 + (ctypes.c_float, _I, _P)

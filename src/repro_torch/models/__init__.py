@@ -13,10 +13,13 @@ Modules:
   moe.py         — shared + routed experts: f32 router, stable sort by
                    expert, one product per expert on its rows, combine in
                    a fixed order
+  rwkv6.py       — RWKV-6 block: token shift, f32 data-dependent decay,
+                   the per-step time-mix recurrence in the activation
+                   dtype, the squared-ReLU channel mix
+  mamba2.py      — Mamba-2 (SSD) block: depthwise causal conv, the
+                   chunked scan in f32 (chunks of 128)
   transformer.py — init_params, embed_inputs / lm_logits (the vlm and
                    audio stubs), forward (train / prefill / decode),
-                   loss_fn, pad_caches; the dense, vlm, audio and moe
-                   families
-
-The recurrent families (rwkv, hybrid) are ROADMAP A12.
+                   loss_fn, pad_caches; the dense, vlm, audio, moe, rwkv
+                   and hybrid families
 """

@@ -11,15 +11,18 @@ Counterpart of ``repro/models/transformer.py`` for the families
   moe   — MLA attention (``mla.py``) + shared and routed experts
           (``moe.py``); the first ``moe_first_dense`` layers keep a dense
           MLP (deepseek v2/v3)
-The recurrent families (``rwkv``, ``hybrid``) raise
-``NotImplementedError`` naming ROADMAP A12.
+  rwkv   — RWKV-6 blocks (``rwkv6.py``; attention-free)
+  hybrid — Mamba-2 blocks (``mamba2.py``) with one *param-shared*
+          attention + MLP block (``shared_attn``) applied after each of
+          ``max(L // attn_every, 1)`` groups of blocks (zamba2)
 
 Parameters are a plain dict with the reference's names and its weight
 layout ``[d_in, d_out]`` (``x @ w`` is the reference's
 ``einsum("bsd,dq->bsq")``), except that the layers (and moe's
 ``dense_layers``) are lists of per-layer dicts where the reference
 stacks them ``[L, ...]`` for ``lax.scan``: the layers run in a Python
-loop. A layer's expert weights stay stacked ``[E, d, F]``.
+loop. A layer's expert weights stay stacked ``[E, d, F]``; the hybrid's
+``shared_attn`` is one layer dict.
 :func:`repro_torch.convert.model_params_from_reference` unstacks a
 reference pytree into this form.
 
@@ -31,11 +34,15 @@ Execution modes:
             pass recomputes a layer's activations from its input
   prefill — full sequence, returns per-layer caches of length S
   decode  — one token at position ``pos`` against caller-provided caches,
-            which are updated IN PLACE (the reference returns new arrays)
+            which are updated IN PLACE (the reference returns new arrays),
+            the recurrent states too
 
 Caches keep the reference's layout: ``{"main": {"k", "v"}}`` with leaves
 ``[L, B, S, KV, hd]``; MLA's ``{"c", "kr"}`` leaves ``[L, B, S, R]``, and
-moe with dense layers ``{"dense": ..., "main": ...}``.
+moe with dense layers ``{"dense": ..., "main": ...}``; rwkv's
+``{"s", "x_tm", "x_cm"}`` leaves ``[L, B, ...]`` (no sequence axis); the
+hybrid's ``{"mamba": {"ssm", "conv"}, "attn": {"k", "v"}}``, the mamba
+leaves ``[L, B, ...]`` and the attention ones ``[n_apps, B, S, KV, hd]``.
 """
 from __future__ import annotations
 
@@ -45,20 +52,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models import mla, moe
+from repro_torch.models import mamba2, mla, moe, rwkv6
 from repro_torch.models.common import (ModelConfig, _init, cross_entropy,
                                        matmul, mlp_apply, mlp_params,
                                        rms_norm)
 
-FAMILY_ITEM = "ROADMAP A12 (model zoo: the recurrent families)"
-FAMILIES = ("dense", "vlm", "audio", "moe")
+FAMILIES = ("dense", "vlm", "audio", "moe", "rwkv", "hybrid")
 AUX_LOSS_W = 0.01
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
-                                  f"{FAMILY_ITEM}")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}) is none of "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +108,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         params["lm_head"] = _init((d, cfg.vocab), cfg.pdt, **kw)
     if cfg.family == "vlm":
         params["patch_proj"] = _init((d, d), cfg.pdt, **kw)
+    if cfg.family == "rwkv":
+        params["layers"] = [rwkv6.rwkv_params(cfg, **kw)
+                            for _ in range(cfg.n_layers)]
+        return params
+    if cfg.family == "hybrid":
+        params["layers"] = [mamba2.mamba_params(cfg, **kw)
+                            for _ in range(cfg.n_layers)]
+        params["shared_attn"] = _tf_layer_params(cfg, use_moe=False, **kw)
+        return params
     use_moe = cfg.family == "moe"
     n_dense = cfg.moe_first_dense if use_moe else 0
     if n_dense:
@@ -184,51 +199,139 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             caches=None, pos=None, last_only: bool = False):
     """Returns (logits, aux_loss, new_caches).
 
-    mode='train'  : caches/pos ignored; new_caches is None.
-    mode='prefill': new_caches hold per-layer caches (length S).
+    mode='train'  : caches/pos ignored; new_caches is None (rwkv: the
+                    final recurrent states, which it always collects).
+    mode='prefill': new_caches hold per-layer caches (length S) and
+                    recurrent states.
     mode='decode' : batch tokens have S=1; ``caches`` required and written
                     in place; ``pos`` is the absolute write/attend position.
     last_only     : compute logits for the final position only (prefill
                     serving path — avoids the [B, S, V] tensor).
     aux_loss is the experts' load-balance loss summed in f32 over the
     layers in order (0 without experts).
+
+    The recurrent families start from the states in ``caches`` where
+    they are given, as the reference does, and run without per-layer
+    remat (training them is not ported).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     decode = mode == "decode"
     x = embed_inputs(params, batch, cfg, decode=decode)
+    if cfg.family == "rwkv":
+        x, new_caches = _forward_rwkv(params, x, cfg, caches=caches,
+                                      decode=decode)
+    elif cfg.family == "hybrid":
+        x, new_caches = _forward_hybrid(params, x, cfg, mode=mode,
+                                        caches=caches, pos=pos)
+    else:
+        return _forward_tf(params, x, cfg, mode=mode, caches=caches,
+                           pos=pos, last_only=last_only)
+    logits = lm_logits(params, x[:, -1:] if last_only else x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32,
+                               device=x.device), new_caches
+
+
+def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
+                last_only):
+    """The transformer families' layers and head (``forward``'s
+    result)."""
+    decode = mode == "decode"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     new_caches: dict[str, Any] = {}
     for name, layers, use_moe in _layer_groups(params, cfg):
         group = caches[name] if decode else None
-        collected: dict[str, list] = {}
+        collected = []
         acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, p_l in enumerate(layers):
             if remat:
                 x, a = checkpoint(_train_block, x, p_l, cfg, use_moe,
                                   use_reentrant=False)
             else:
-                c_l = ({k: v[i] for k, v in group.items()} if decode
-                       else None)
                 x, kv, a = _tf_block(x, p_l, cfg, use_moe=use_moe,
                                      pos=pos if decode else None,
-                                     cache=c_l)
+                                     cache=_layer_states(group, i))
                 if mode == "prefill":
-                    for k, v in kv.items():
-                        collected.setdefault(k, []).append(v)
+                    collected.append(kv)
             if a is not None:
                 acc = acc + a
         aux = aux + acc
         if mode == "prefill":
-            new_caches[name] = {k: torch.stack(v)
-                                for k, v in collected.items()}
+            new_caches[name] = _stacked(collected)
     logits = lm_logits(params, x[:, -1:] if last_only else x, cfg)
     if mode == "train":
         return logits, aux, None
     if decode:
         return logits, aux, caches
     return logits, aux, new_caches
+
+
+def _layer_states(states, i):
+    """Layer i's views of stacked ``[L, ...]`` states (None stays)."""
+    return None if states is None else {k: v[i] for k, v in states.items()}
+
+
+def _stacked(per_layer):
+    """Per-layer dicts of tensors -> one dict of ``[L, ...]`` stacks."""
+    return {k: torch.stack([d[k] for d in per_layer]) for k in per_layer[0]}
+
+
+def _write_states(states, i, new):
+    """Layer i's new states written into the stacked ones, in place."""
+    for k, v in new.items():
+        states[k][i].copy_(v)
+
+
+def _forward_rwkv(params, x, cfg: ModelConfig, *, caches, decode):
+    """RWKV-6: the blocks in order, each from its state in ``caches``
+    (zeros where there are none). The new states are always collected,
+    as the reference collects them (they are small): stacked ``[L, ...]``,
+    or in decode written into ``caches`` in place."""
+    collected = []
+    for i, p_l in enumerate(params["layers"]):
+        x, st = rwkv6.rwkv_block(x, p_l, cfg,
+                                 state=_layer_states(caches, i))
+        if decode:
+            _write_states(caches, i, st)
+        else:
+            collected.append(st)
+    if decode:
+        return x, caches
+    return x, _stacked(collected)
+
+
+def _forward_hybrid(params, x, cfg: ModelConfig, *, mode, caches, pos):
+    """Zamba2: ``n_apps = max(L // attn_every, 1)`` groups of ``L //
+    n_apps`` mamba blocks, each group followed by the shared attention +
+    MLP block (one set of parameters; each application has its own KV
+    cache). Returns (x, caches): in prefill the mamba states stacked
+    ``[n_apps * (L // n_apps), ...]`` and the applications' keys and
+    values ``[n_apps, B, S, KV, hd]``; in decode ``caches``, updated in
+    place; in train None."""
+    decode = mode == "decode"
+    k = cfg.attn_every or cfg.n_layers
+    n_apps = max(cfg.n_layers // k, 1)
+    Lg = cfg.n_layers // n_apps
+    m_states = caches["mamba"] if caches is not None else None
+    new_m, new_a = [], []
+    for g in range(n_apps):
+        for i in range(g * Lg, (g + 1) * Lg):
+            x, st = mamba2.mamba_block(x, params["layers"][i], cfg,
+                                       state=_layer_states(m_states, i))
+            if decode:
+                _write_states(m_states, i, st)
+            else:
+                new_m.append(st)
+        ac = _layer_states(caches["attn"], g) if decode else None
+        x, kv, _ = _tf_block(x, params["shared_attn"], cfg, use_moe=False,
+                             pos=pos if decode else None, cache=ac)
+        new_a.append(kv)
+    if decode:
+        return x, caches
+    if mode == "train":
+        return x, None
+    return x, {"mamba": _stacked(new_m), "attn": _stacked(new_a)}
 
 
 def _train_block(x, p, cfg: ModelConfig, use_moe: bool):

@@ -21,9 +21,10 @@ The stack, bottom-up:
   bundled implementations.
 
 The model-serving half: :func:`prefill_step`, :func:`serve_step` and
-:func:`generate` (the model zoo's dense, vlm, audio and moe families; the
-recurrent ones are ROADMAP A12), and :func:`pick`, the next token from
-logits (greedy or sampled; audio's [B, 1, C]).
+:func:`generate` (every family of the model zoo: dense, vlm, audio, moe,
+and the recurrent rwkv and hybrid, whose states ride in the caches), and
+:func:`pick`, the next token from logits (greedy or sampled; audio's
+[B, 1, C]).
 """
 from repro_torch.serve.engine import (MeshCallError, SolveInfo,
                                       SolverEngine, generate,

@@ -3,11 +3,11 @@ accuracy-targeted SPD solve serving.
 
 Counterpart of ``repro/serve/engine.py``. ``prefill_step`` /
 ``serve_step`` are one full-sequence forward and one decode step of the
-model zoo (the dense, vlm, audio and moe families; the recurrent ones
-are ROADMAP A12); ``generate`` is the host loop around them: prefill a
-prompt batch, then greedy or sampled decoding. ``serve_step`` writes the
-new position into the caches in place (the reference returns new
-arrays).
+model zoo (every family: dense, vlm, audio, moe, rwkv, hybrid);
+``generate`` is the host loop around them: prefill a prompt batch, then
+greedy or sampled decoding. ``serve_step`` writes the new position into
+the caches in place, and the recurrent families' new states too (the
+reference returns new arrays).
 
 ``SolverEngine`` is the linear-algebra side: SPD solve requests carry a
 per-request ACCURACY TARGET (decimal digits of relative residual) instead

@@ -279,18 +279,16 @@ def test_attention_keeps_the_chunk_limit():
         attention.attention(x, p, cfg, chunk=8)
 
 
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
-                                  if tconfigs.get_config(a).family
-                                  in ("rwkv", "hybrid")])
-def test_non_dense_families_raise(arch):
-    """The families still to port (ROADMAP A12.3: rwkv6, the zamba2
-    hybrid) raise naming A12; tests/test_torch_zoo.py runs the others."""
-    cfg = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="A12"):
+def test_unknown_family_raises():
+    """Every family of the configs runs; a config naming another is
+    refused by init_params, forward and convert alike."""
+    cfg = tconfigs.get_config("gemma-2b", smoke=True).replace(
+        family="ssm")
+    with pytest.raises(ValueError, match="ssm"):
         TT.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="ssm"):
         convert.model_params_from_reference({}, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="ssm"):
         TT.forward({"embed": torch.zeros(4, 4)},
                    {"tokens": torch.zeros(1, 2, dtype=torch.long)}, cfg)
 

@@ -411,11 +411,13 @@ def test_convert_round_trip(jx, arch):
 
 
 @pytest.mark.parametrize("arch", ["pixtral-12b", "musicgen-large",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "rwkv6-3b",
+                                  "zamba2-2.7b"])
 def test_train_step_refuses_the_served_families(arch):
     """Training these families is not ported: TreeNewton would whiten the
     unstacked expert stacks the reference leaves to AdamW, and no gradient
-    of them is held to the reference. The step factory says so."""
+    of them (the experts, the recurrent scans) is held to the reference.
+    The step factory says so."""
     from repro_torch.train import TrainConfig, make_train_step
     cfg = tconfigs.get_config(arch, smoke=True)
     for opt in ("adamw", "tree_newton"):
