@@ -275,9 +275,26 @@ result line. Phases:
    optimizer, the refactor and each whitening group timed alone.
    ``train_depth``: a 2-layer copy's solver launches per step equal the
    18-layer run's. ``train_cpu_agreement``: one step of each optimizer on
-   the card against the CPU (a 2-layer, d 256, f32 config). ``train_dp``:
+   the card against the CPU (a 2-layer, d 256, f32 config), and one AdamW
+   step of each other family's smoke config at 2 layers. ``train_dp``:
    the reference's mini data-parallel trainer with the int8 error-feedback
    all-reduce as 4 ranks sharing the card over gloo, to its bound.
+11. ``train_driver``: ``repro_torch.launch.train.main`` on gemma-2b full,
+   AdamW, 2 x 2048, 5 steps: a run that saves at step 3 (under the
+   git-ignored ``build/``; one save, as the card's machine takes 45 GiB
+   of disk writes a call), an uninterrupted run, and a resume of the
+   step-3 checkpoint to step 5; the checkpoint restores bitwise the
+   state it saved (checked before the next step), and the resumed run's
+   parameters are no further from the uninterrupted run's than two
+   uninterrupted runs are from each other; the driver's step ms, each
+   save's blocking seconds, the writer's seconds, the checkpoint's GiB
+   and the restore's seconds. ``train_families``: 3 AdamW steps of
+   rwkv6-3b (2 x 512), zamba2-2.7b and musicgen-large at full size, and
+   of deepseek-v2-lite-16b and pixtral-12b cut in depth (``FAMILY_RUNS``,
+   2 x 1024), then 3 TreeNewton steps of the cut deepseek-v2-lite: losses
+   finite and falling, flash launches per step, the TreeNewton launches
+   against the schedule, no MoE expert stack whitened; step ms and peak
+   GiB of each.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``. A
@@ -293,6 +310,7 @@ import functools
 import importlib.util
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4380,6 +4398,7 @@ def _train_steps(step_fn, state, batch, steps, label):
             raise AssertionError(f"{label}: loss {loss} at step "
                                  f"{state['step']}")
         rows.append({"step": state["step"], "loss": loss,
+                     "ce": float(m["ce"]), "aux": float(m["aux"]),
                      "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
                      "step_ms": start.elapsed_time(stop), "wall_ms": wall,
                      "solver_launches": _kfac_launches(before),
@@ -4388,14 +4407,14 @@ def _train_steps(step_fn, state, batch, steps, label):
     return state, rows
 
 
-def _train_configs(block=512):
-    """The train phase's optimizers: AdamW at lr 5e-4 (warmup 1, so that
+def _train_configs(block=512, lr=5e-4):
+    """The train phase's optimizers: AdamW at ``lr`` (warmup 1, so that
     4 steps on one batch move the loss) and TreeNewton with that AdamW,
     the default bf16_f32 ladder at leaf 128, block 512, a refactor every
     second step."""
     from repro_torch.optim import AdamWConfig, TreeNewtonConfig
     from repro_torch.train import TrainConfig
-    adam = AdamWConfig(lr=5e-4, warmup=1, total_steps=100)
+    adam = AdamWConfig(lr=lr, warmup=1, total_steps=100)
     tn = TreeNewtonConfig(adam=adam, block=block, factor_every=2)
     return (TrainConfig(optimizer="adamw", adam=adam),
             TrainConfig(optimizer="tree_newton", adam=adam, tree_newton=tn))
@@ -4605,9 +4624,12 @@ def train_cpu_agreement(seed=970):
         runs.append({"optimizer": tcfg.optimizer, "loss_card": gm["loss"],
                      "loss_cpu": cm["loss"], "param_max_abs_err": err,
                      "lr": cm["lr"]})
+    families = [train_family_cpu_agreement(arch, seed + 20 + i)
+                for i, arch in enumerate(AGREEMENT_FAMILIES)]
     return {"phase": "train_cpu_agreement", "config": "2 layers, d_model "
             "256, d_ff 512, f32; TreeNewton block 256, leaf 128, refactor "
-            "every step", "runs": runs,
+            "every step; families: each smoke config at 2 layers, f32, "
+            "one AdamW step", "runs": runs, "families": families,
             "tol": "where |g| > 100 eps: 2e-6 + 1e-3 lr; elsewhere the "
                    "step's own size (tests/test_torch_train.py)"}
 
@@ -4629,6 +4651,351 @@ def train_dp_phase(kind, smi):
             "nvidia_smi": smi, "note": DIST_NOTE, **res,
             "bound": "max|w - w_true| < 5e-2 (tests/test_train.py:152)",
             "phase_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# the training driver, and a train step of every family
+# ---------------------------------------------------------------------------
+#: the driver's runs: gemma-2b full, AdamW, the train phase's batch shape
+#: (the driver draws a new SyntheticLM batch each step), 5 steps; one save
+#: at step 3: the card's machine takes 45 GiB of disk writes a call, and
+#: the state is 28.2 GiB
+DRIVER_ARCH = "gemma-2b"
+DRIVER_ARGS = ("--steps", "5", "--batch", str(TRAIN_B), "--seq",
+               str(TRAIN_S), "--lr", "5e-4")
+DRIVER_SAVE_AT = 3
+#: where the driver's checkpoints go (git-ignored, removed after the phase)
+DRIVER_DIR = ROOT / "build" / "train_driver_ckpt"
+
+
+def _dir_gib(path) -> float:
+    return sum(f.stat().st_size for f in Path(path).iterdir()) / 2 ** 30
+
+
+def _params_gap(a, b) -> float:
+    """max |a - b| over every parameter (0.0: bitwise equal)."""
+    from repro_torch.optim.adamw import leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for (_, x), (_, y) in zip(leaves(a), leaves(b)))
+
+
+def _restored_bitwise(path, step, layout):
+    """``checkpoint.restore`` of ``step`` into the structure of
+    ``layout`` (the tree save wrote, its tensors unchanged since): every
+    leaf bitwise equal, in its dtype. Returns (leaves compared, restore
+    seconds)."""
+    from repro_torch import checkpoint as ckpt
+    t0 = time.perf_counter()
+    restored, got_step = ckpt.restore(str(path), layout, step=step)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if got_step != step:
+        raise AssertionError(f"train_driver: restored step {got_step}")
+    want = dict(ckpt.leaves(layout))
+    n = 0
+    for name, got in ckpt.leaves(restored):
+        w = want[name]
+        if isinstance(w, int):
+            same = got == w
+        elif isinstance(w, ckpt.Stacked):
+            same = all(g.dtype == p.dtype and torch.equal(g, p)
+                       for g, p in zip(got.parts, w.parts))
+        else:
+            same = got.dtype == w.dtype and torch.equal(got, w)
+        if not same:
+            raise AssertionError(f"train_driver: {name} restored from step "
+                                 f"{step} differs from the state it saved")
+        n += 1
+    del restored
+    return n, seconds
+
+
+@contextlib.contextmanager
+def _checked_saves(record):
+    """While open, ``checkpoint.save`` (which the driver calls) saves as
+    always, then waits for its writer and holds ``checkpoint.restore``
+    of the step against the tree it saved, before the driver's loop goes
+    on to change it: ``record`` gets the step, the save's blocking host
+    seconds, the writer's seconds, the GiB on disk, the leaves compared
+    and the restore's seconds."""
+    from repro_torch import checkpoint as ckpt
+    real = ckpt.save
+
+    def checked(path, step, tree, **kw):
+        t0 = time.perf_counter()
+        h = real(path, step, tree, **kw)
+        block = time.perf_counter() - t0
+        h.wait()
+        torch.cuda.empty_cache()
+        n, restore_s = _restored_bitwise(path, step, tree)
+        record.append({"step": step, "save_block_s": block,
+                       "writer_s": h.seconds, "gib_on_disk":
+                       _dir_gib(h.final), "restored_leaves": n,
+                       "restore_s": restore_s,
+                       "restored_equals_saved": True})
+        return h
+    ckpt.save = checked
+    try:
+        yield
+    finally:
+        ckpt.save = real
+
+
+def train_driver_phase(kind, smi, arch=DRIVER_ARCH, args=DRIVER_ARGS,
+                       save_at=DRIVER_SAVE_AT, root=DRIVER_DIR,
+                       device="cuda"):
+    """``repro_torch.launch.train.main`` on ``arch`` full, AdamW: run A
+    saves at step ``save_at`` (the restore of that step held bitwise
+    against the state it saved, before the next step changes it), run B
+    runs uninterrupted, run C resumes A's checkpoint to the last step.
+    Gates: every loss finite; the restored state equals the saved one
+    bitwise; C's parameters differ from B's by no more than A's do (0
+    means bitwise). Reports the driver's step ms (host clock, batch to
+    loss, as its heartbeat) beside the train line's, the save's blocking
+    host seconds, the writer's seconds, the checkpoint's GiB on disk, and
+    the restore's seconds (C's ``restore_into`` and the check's
+    ``restore``)."""
+    from repro_torch.launch import train as driver
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--arch", arch, "--device", device, *args]
+
+    def run(label, *extra):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out = driver.main([*base, *extra])
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"train_driver {label}: losses "
+                                 f"{out['losses']}")
+        row = {"start": out["start"], "losses": out["losses"],
+               "step_ms": [s * 1e3 for s in out["step_s"]],
+               "restore_s": out["restore_s"]}
+        if device == "cuda":
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, row
+    saves = []
+    try:
+        with _checked_saves(saves):
+            a, row_a = run("A", "--ckpt-every", str(save_at), "--ckpt-dir",
+                           str(root / "a"))
+        if [r["step"] for r in saves] != [save_at]:
+            raise AssertionError(f"train_driver: A saved {saves}")
+        params_a = a["state"]["params"]
+        del a
+        b, row_b = run("B", "--ckpt-every", "1000", "--ckpt-dir",
+                       str(root / "b"))
+        gap_runs = _params_gap(b["state"]["params"], params_a)
+        del params_a
+        params_b = b["state"]["params"]
+        del b
+        c, row_c = run("C", "--ckpt-every", "1000", "--ckpt-dir",
+                       str(root / "a"), "--resume")
+        if c["start"] != save_at:
+            raise AssertionError(f"train_driver: C resumed at {c['start']}")
+        gap_resume = _params_gap(c["state"]["params"], params_b)
+        del c, params_b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not gap_resume <= gap_runs:
+        raise AssertionError(f"train_driver: the resumed run is {gap_resume} "
+                             f"from the uninterrupted one, two uninterrupted "
+                             f"runs {gap_runs} apart")
+    return {"phase": "train_driver", "arch": arch, "args": list(base),
+            "device": kind, "nvidia_smi": smi,
+            "runs": {"A_save": row_a, "B_uninterrupted": row_b,
+                     "C_resume": row_c},
+            "save": saves[0],
+            "step_ms_median": statistics.median(row_a["step_ms"][1:]
+                                                + row_b["step_ms"][1:]),
+            "gap_resumed_vs_uninterrupted": gap_resume,
+            "gap_uninterrupted_vs_uninterrupted": gap_runs,
+            "gates": {"restored_equals_saved": "bitwise, every leaf",
+                      "resume": "gap_resumed <= gap_uninterrupted"},
+            "timing": "step_ms: host clock per driver step, the batch "
+                      "fetched and moved to the card to the loss read "
+                      "back (the first step warms up); save_block_s: "
+                      "save's host copy before it returns; writer_s: the "
+                      "writer thread's files (fsync not forced); "
+                      "restore_s: the files read (warm in the page cache) "
+                      "and copied to the card",
+            "phase_s": time.perf_counter() - t_phase}
+
+
+#: the non-dense families' train steps: (arch, overrides, B, S, lr, note).
+#: lr 5e-4 as the train phase, but 1e-4 for the MoE: AdamW's first steps,
+#: about lr a weight whatever the gradient, turn the random router's
+#: logits by ~lr d |x|, its load-balance loss grows and the loss rises
+#: for two steps (the phase's ``moe_at_train_lr`` run records it)
+FAMILY_RUNS = (
+    ("rwkv6-3b", {}, 2, 512, 5e-4, None),
+    ("zamba2-2.7b", {}, 2, 1024, 5e-4, None),
+    ("musicgen-large", {}, 2, 1024, 5e-4, None),
+    ("deepseek-v2-lite-16b", {"n_layers": 6}, 2, 1024, 1e-4,
+     "depth cut to 6 of 27 layers (1 dense + 5 MoE): the AdamW state of "
+     "all 27 (15.7 B parameters at 2 + 2 + 8 bytes) is 176 GiB"),
+    ("pixtral-12b", {"n_layers": 12}, 2, 1024, 5e-4,
+     "depth cut to 12 of 40 layers: the AdamW state of all 40 (12.3 B "
+     "parameters at 2 + 2 + 8 bytes) is 137 GiB"),
+)
+#: TreeNewton on the cut deepseek-v2-lite
+FAMILY_TN = "deepseek-v2-lite-16b"
+
+
+def _family_batch(cfg, B, S, seed, device="cuda"):
+    """B random sequences of S + 1 tokens (audio: [B, S + 1, C]): tokens
+    and next-token labels; vlm adds patch embeddings [B, n, d] f32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (B, S + 1) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                          else ())
+    toks = torch.randint(0, cfg.vocab, shape, generator=g, device=device)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.randn(
+            (B, cfg.n_img_tokens, cfg.d_model), generator=g, device=device)
+    return out
+
+
+def _family_run(arch, overrides, B, S, tcfg, steps, seed, note=None,
+                falls=True):
+    """``steps`` steps of ``tcfg`` on one batch of ``arch``'s config (with
+    ``overrides``), random weights from ``seed`` on the card: losses
+    finite and (with ``falls``) the last below the first, flash launches
+    per step twice the prefill's (the forward and remat's recompute)."""
+    from repro_torch import configs
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_state, make_train_step
+    cfg = configs.get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, tcfg, seed=seed, device="cuda")
+    nonzero_leaves(cfg, state["params"], seed + 1)
+    nparams = sum(p.numel() for _, p in leaves(state["params"]))
+    batch = _family_batch(cfg, B, S, seed + 2)
+    label = f"train_families {arch} {tcfg.optimizer}"
+    state, rows = _train_steps(make_train_step(cfg, tcfg), state, batch,
+                               steps, label)
+    losses = [r["loss"] for r in rows]
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    want_flash = 2 * flash_per_prefill(cfg)
+    for r in rows:
+        if r["flash_launches"] != want_flash:
+            raise AssertionError(f"{label}: {r['flash_launches']} flash "
+                                 f"launches a step, not {want_flash}")
+    line = {"arch": arch, "family": cfg.family, "optimizer": tcfg.optimizer,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.param_dtype, "remat": cfg.remat, "batch": B,
+            "seq": S, "params_b": nparams / 1e9, "steps": rows,
+            "losses": losses,
+            "step_ms_median": statistics.median(r["step_ms"] for r in rows),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "flash_launches_per_step": want_flash,
+            "run_s": time.perf_counter() - t0}
+    if note:
+        line["note"] = note
+    return line, state, cfg
+
+
+def train_families_phase(kind, smi):
+    """3 AdamW steps of each non-dense family at full width
+    (``FAMILY_RUNS``: rwkv6-3b, zamba2-2.7b and musicgen-large at full
+    depth; deepseek-v2-lite-16b and pixtral-12b cut in depth, each cut in
+    its ``note``), then 2 TreeNewton steps on the cut deepseek-v2-lite (a
+    refactor at step 2, a third step to see the loss fall): losses finite
+    and falling, flash launches per step, the solver launches of each
+    TreeNewton step equal to the grouped schedule, and no MoE expert stack
+    (``moe/w_in``, ``moe/w_out``) among the whitened matrices; step ms,
+    peak GiB and the losses of each."""
+    from repro_torch.optim import kfac
+    t_phase = time.perf_counter()
+    runs = []
+    for i, (arch, over, B, S, lr, note) in enumerate(FAMILY_RUNS):
+        t_adam, _ = _train_configs(lr=lr)
+        line, state, _ = _family_run(arch, over, B, S, t_adam, 3, 1000 + i,
+                                     note)
+        line["lr"] = lr
+        runs.append(line)
+        del state
+    arch, over, B, S, lr, note = next(r for r in FAMILY_RUNS
+                                      if r[0] == FAMILY_TN)
+    # the MoE at the train phase's lr, recorded, not gated
+    t_adam, _ = _train_configs()
+    line, state, _ = _family_run(arch, over, B, S, t_adam, 3, 1000 + len(
+        FAMILY_RUNS), note, falls=False)
+    del state
+    moe_at_train_lr = {"lr": t_adam.adam.lr, "losses": line["losses"],
+                       "ce": [r["ce"] for r in line["steps"]],
+                       "aux": [r["aux"] for r in line["steps"]]}
+    _, t_tn = _train_configs(lr=lr)
+    line, state, cfg = _family_run(arch, over, B, S, t_tn, 3, 1100, note)
+    line["lr"] = lr
+    tn = t_tn.tree_newton
+    groups = kfac.whiten_groups(state["params"], tn)
+    whitened = [p for ps in groups.values() for p in ps]
+    experts = [p for p in whitened if p.endswith(("moe/w_in", "moe/w_out"))]
+    if experts or not whitened:
+        raise AssertionError(f"train_families: TreeNewton whitens "
+                             f"{len(whitened)} matrices, expert stacks "
+                             f"among them: {experts}")
+    _check_schedule(f"train_families {arch} tree_newton", line["steps"], tn,
+                    len(groups))
+    line["whitened_paths"] = len(whitened)
+    line["whitened_by_dout"] = {d: len(ps) for d, ps in groups.items()}
+    line["expert_stacks_whitened"] = 0
+    runs.append(line)
+    del state
+    torch.cuda.empty_cache()
+    return {"phase": "train_families", "device": kind, "nvidia_smi": smi,
+            "runs": runs, "moe_at_train_lr": moe_at_train_lr,
+            "timing": "step_ms: CUDA events around one step "
+            "(forward, backward, optimizer) on one batch",
+            "phase_s": time.perf_counter() - t_phase}
+
+
+#: one AdamW step of each family's smoke config at 2 layers, card vs CPU
+AGREEMENT_FAMILIES = ("pixtral-12b", "musicgen-large",
+                      "deepseek-v2-lite-16b", "rwkv6-3b", "zamba2-2.7b")
+
+
+def train_family_cpu_agreement(arch, seed):
+    """One AdamW step of ``arch``'s smoke config at 2 layers (f32; the
+    deepseek smoke with ``_SMOKE_OVERRIDES``; the recurrent leaves drawn
+    nonzero) on the card and on the CPU from the same weights and batch:
+    the loss within 1e-5 relative, the parameters within _step_close's
+    bounds."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.step import init_opt
+    cfg = configs.get_config(arch, smoke=True).replace(
+        n_layers=2, **_SMOKE_OVERRIDES.get(arch, {}))
+    adam = AdamWConfig(lr=1e-2, warmup=2, total_steps=100)
+    tcfg = TrainConfig(optimizer="adamw", adam=adam)
+    base = T.init_params(cfg, seed=seed, device="cpu")
+    nonzero_leaves(cfg, base, seed + 1)
+    batch = _family_batch(cfg, 2, 64, seed + 2, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda _, p: p.to(dev, copy=True), base)
+        state = {"params": params, "opt": init_opt(params, tcfg), "step": 0}
+        state, m = make_train_step(cfg, tcfg)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (state, {k: float(v) for k, v in m.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    if not abs(gm["loss"] - cm["loss"]) <= 1e-5 * abs(cm["loss"]):
+        raise AssertionError(f"train card vs CPU ({arch}): loss "
+                             f"{gm['loss']} vs {cm['loss']}")
+    err = _step_close(f"train card vs CPU ({arch})", gs["params"],
+                      cs["params"], cs["opt"]["m"], adam, cm["lr"])
+    return {"arch": cfg.name, "family": cfg.family, "n_layers": 2,
+            "loss_card": gm["loss"], "loss_cpu": cm["loss"],
+            "param_max_abs_err": err, "lr": cm["lr"]}
 
 
 def main() -> int:
@@ -4894,6 +5261,12 @@ def main() -> int:
           [run_train, lambda: train_depth_check(train_line),
            train_cpu_agreement])
     emit(train_dp_phase(kind, smi))
+    # the training driver (gemma-2b full: save, restore, resume), then a
+    # train step of every other family at full width
+    drive("train_driver", ("flash_attention",),
+          [lambda: train_driver_phase(kind, smi)])
+    drive("train_families", TRAIN_KERNELS,
+          [lambda: train_families_phase(kind, smi)])
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -28,12 +28,24 @@ and the statistics and factors of each eligible matrix, stacked
 per layer, statistics and factors per path ``layers/<i>/...`` as
 ``(nb, block, block)``, host integer counts); :func:`opt_state_to_numpy`
 goes back, the layers stacked again.
+
+A whole train state (``params``, ``opt``, ``step``) crosses through
+:func:`train_state_layout`: the state in the reference's layout (its
+names, the layers stacked) without a copy, each stacked leaf a
+:class:`~repro_torch.checkpoint.Stacked` view of the per-layer tensors and
+the counts host integers. :func:`repro_torch.checkpoint.save` of it
+builds each stack on the host layer by layer, in one array, and
+:func:`~repro_torch.checkpoint.restore_into` copies a stored state back
+into the tensors; :func:`train_state_from_layout` then takes the
+restored counts. So the training drivers of both packages read each
+other's checkpoints, and no ``ml_dtypes`` is needed for bf16.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Stacked
 from repro_torch.core.precision import PrecisionConfig
 from repro_torch.core.refine import RefineConfig
 from repro_torch.core.solve import as_tensor
@@ -159,23 +171,26 @@ def _ref_paths(tree, prefix=""):
     return {} if tree is None else {prefix: tree}
 
 
-def _unstack_paths(flat, n_layers, device):
-    """Reference paths -> the port's: ``layers/x`` (stacked) becomes
-    ``layers/<i>/x`` for each layer."""
+def _unstack_paths(flat, device):
+    """Reference paths -> the port's: a stacked ``layers/x`` (or
+    ``dense_layers/x``) becomes ``layers/<i>/x`` for each of its own
+    layers."""
     out = {}
     for path, arr in flat.items():
         t = _tensor(arr, device)
-        if path.startswith("layers/"):
-            for i in range(n_layers):
-                out[f"layers/{i}/{path[len('layers/'):]}"] = t[i]
+        key, _, rest = path.partition("/")
+        if key in _STACKED and rest:
+            for i in range(t.shape[0]):
+                out[f"{key}/{i}/{rest}"] = t[i]
         else:
             out[path] = t
     return out
 
 
-def _restack_paths(flat):
-    """The port's paths -> the reference's, the layers stacked again, as
-    numpy."""
+def _by_layer(flat):
+    """The port's ``{path: tensor}`` under the reference's paths:
+    ``({path: tensor}, {path: [tensor of each layer, in order]})``, the
+    second for the stacked keys' leaves."""
     out, layered = {}, {}
     for path, t in flat.items():
         parts = path.split("/")
@@ -183,11 +198,17 @@ def _restack_paths(flat):
             layered.setdefault("/".join([parts[0]] + parts[2:]), []).append(
                 (int(parts[1]), t))
         else:
-            out[path] = _array(t)
-    for path, items in layered.items():
-        out[path] = _array(torch.stack([t for _, t in sorted(
-            items, key=lambda it: it[0])]))
-    return out
+            out[path] = t
+    return out, {p: [t for _, t in sorted(items, key=lambda it: it[0])]
+                 for p, items in layered.items()}
+
+
+def _restack_paths(flat):
+    """The port's paths -> the reference's, the layers stacked again, as
+    numpy."""
+    out, layered = _by_layer(flat)
+    return {**{p: _array(t) for p, t in out.items()},
+            **{p: _array(torch.stack(ts)) for p, ts in layered.items()}}
 
 
 def _nest(flat):
@@ -221,7 +242,7 @@ def opt_state_from_reference(state, params_ref, cfg, device="cuda"):
     ``kfac.init`` or a later step of either; arrays as anything
     ``numpy.asarray`` takes). ``params_ref`` is the reference's parameter
     pytree, whose structure the statistics follow; ``cfg`` the model's
-    config (its ``n_layers``)."""
+    config."""
     if "stats" not in state:
         return _adam_from_reference(state, cfg, device)
     keep = set(_ref_paths(params_ref))
@@ -229,7 +250,7 @@ def opt_state_from_reference(state, params_ref, cfg, device="cuda"):
     def mats(tree):
         flat = {p: a for p, a in _ref_paths(tree).items() if p in keep}
         return {p: t.clone() for p, t in
-                _unstack_paths(flat, cfg.n_layers, device).items()}
+                _unstack_paths(flat, device).items()}
     return {"adam": _adam_from_reference(state["adam"], cfg, device),
             "stats": mats(state["stats"]), "factors": mats(state["factors"]),
             "count": int(np.asarray(state["count"]))}
@@ -251,8 +272,52 @@ def opt_state_to_numpy(state):
             "count": state["count"]}
 
 
+def _layout(flat):
+    """The port's ``{path: tensor}`` as the reference's nested dicts, the
+    layers' leaves as Stacked views in layer order."""
+    out, layered = _by_layer(flat)
+    return _nest({**out, **{p: Stacked(ts) for p, ts in layered.items()}})
+
+
+def train_state_layout(state):
+    """The port's train state ``{"params", "opt", "step"}`` in the
+    reference's layout, sharing the state's tensors: parameters and AdamW
+    moments as the reference's parameter pytree, TreeNewton's statistics
+    and factors as pytrees of its eligible leaves (``(L, nb, block,
+    block)`` stacks), ``step`` and the counts as host integers."""
+    from repro_torch.optim.adamw import leaves
+
+    def tree(t):
+        return _layout(dict(leaves(t)))
+
+    def adam(st):
+        return {"m": tree(st["m"]), "v": tree(st["v"]),
+                "count": st["count"]}
+    opt = state["opt"]
+    if "stats" in opt:
+        opt = {"adam": adam(opt["adam"]), "stats": _layout(opt["stats"]),
+               "factors": _layout(opt["factors"]), "count": opt["count"]}
+    else:
+        opt = adam(opt)
+    return {"params": tree(state["params"]), "opt": opt,
+            "step": state["step"]}
+
+
+def train_state_from_layout(layout, state):
+    """``state`` with the host integers of a restored
+    :func:`train_state_layout` (``step`` and the optimizer's counts); its
+    tensors were restored in place."""
+    state["step"] = layout["step"]
+    opt, lo = state["opt"], layout["opt"]
+    if "stats" in opt:
+        opt["adam"]["count"] = lo["adam"]["count"]
+    opt["count"] = lo["count"]
+    return state
+
+
 __all__ = ["config_from_fields", "factor_from_numpy", "factor_to_numpy",
            "model_params_from_reference", "model_params_to_numpy",
            "opt_state_from_reference", "opt_state_to_numpy",
-           "refine_config_from_fields", "treespd_from_reference",
+           "refine_config_from_fields", "train_state_from_layout",
+           "train_state_layout", "treespd_from_reference",
            "treespd_to_numpy"]

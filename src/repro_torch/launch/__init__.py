@@ -6,7 +6,9 @@ Counterpart of ``repro/launch/mesh.py``'s ``make_mesh`` and
 :func:`~repro_torch.launch.mesh.launch` runs a function on every rank of
 a fresh group of spawned processes on this machine (gloo over
 127.0.0.1), the counterpart of the reference's forced host devices.
-``make_production_mesh`` and ``launch/sharding.py`` are ROADMAP A12.
+``make_production_mesh`` and ``launch/sharding.py`` are ROADMAP A3.
+The training driver is :mod:`repro_torch.launch.train` (``python -m
+repro_torch.launch.train``).
 """
 from repro_torch.launch.mesh import axis_size, launch, make_mesh
 

@@ -19,7 +19,7 @@ none is written here.
 
 Query head ``h`` reads kv head ``h // G`` (``h = kv * G + g``), so
 repeated keys and values are never materialized. No ``sharder`` argument:
-the model's mesh path (DTensor) is ROADMAP A12.
+the model's mesh path (DTensor) is ROADMAP A3.
 """
 from __future__ import annotations
 

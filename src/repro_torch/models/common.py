@@ -4,7 +4,7 @@ Counterpart of ``repro/models/common.py``. The reference's ``Sharder`` /
 ``NO_SHARD`` (GSPMD sharding constraints under a mesh) are left out, and
 so none of the functions here takes a ``sharder`` argument: their mesh
 counterpart (model weights and activations as DTensors, for each family
-served: dense, vlm, audio, moe, rwkv, hybrid) is ROADMAP A12.4; the
+served: dense, vlm, audio, moe, rwkv, hybrid) is ROADMAP A3; the
 distributed solver
 (A9, ``core/distributed.py``) shards no model.
 ``cross_entropy`` is the training loss (``transformer.loss_fn``).

@@ -95,7 +95,10 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a, state0):
     Per chunk of Q positions (the reference's ``chunk``): log decays
     ``la = log(max(a, 1e-37))`` and their prefix sums ``cum``; the
     intra-chunk term ``y_t = sum_{u <= t} (C_t . B_u) exp(cum_t - cum_u)
-    dt_u x_u`` (the upper triangle set to 0 after the exp); the carried
+    dt_u x_u`` (the upper triangle's exponents set to -inf, so exp gives
+    its 0: the reference sets it to 0 after the exp, where
+    ``cum_t - cum_u`` for u > t can overflow to inf, and its backward
+    then takes 0 * inf = NaN; the values are the same); the carried
     state's ``C_t S exp(cum_t)``; the update ``S = exp(cum_Q) S +
     sum_u exp(cum_Q - cum_u) B_u^T dt_u x_u``. The [Q, Q] products run
     per (batch, head)."""
@@ -115,7 +118,7 @@ def _ssd_chunk_scan(xh, bmat, cmat, dt, a, state0):
         la = torch.log(torch.clamp_min(a_c, 1e-37))
         cum = torch.cumsum(la, dim=1).transpose(1, 2)          # [B, H, Q]
         seg = cum[:, :, :, None] - cum[:, :, None, :]          # [B, H, Q, Q]
-        gamma = torch.where(tri, torch.exp(seg), 0.0)
+        gamma = torch.exp(torch.where(tri, seg, -torch.inf))
         cb = c_c @ b_c.transpose(1, 2)                         # [B, Q, Q]
         mat = cb[:, None] * gamma
         xdt = (xh[:, sl].to(f32) * dt_c[..., None]).transpose(1, 2)

@@ -2,7 +2,7 @@
 torch.
 
 Counterpart of ``repro/models/moe.py`` at one expert shard (``ep = 1``;
-the reference's ``shard_map`` over a mesh is ROADMAP A12.4). The router
+the reference's ``shard_map`` over a mesh is ROADMAP A3). The router
 runs in f32: softmax, top-k, gates renormalised over the k. The T * K
 assignments are sorted by expert with a STABLE sort (as ``jnp.argsort``),
 the first ``cap`` kept (``cap = int(T K * capacity_factor)``, at most

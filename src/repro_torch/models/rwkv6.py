@@ -13,10 +13,12 @@ The recurrence is the reference's per-step scan, one step per position in
 a Python loop, in the activation dtype: ``o = r S + (sum r u k) v``, then
 ``S = w S + k^T v``, so a bf16 state is rounded at every step as the
 reference rounds it (a chunked "parallel" form would be another
-function). The reference's two-level scan checkpoints chunks of
-``TIME_CHUNK`` steps to save memory in its backward pass; that has no
-effect on the values and is left out here (training these families is
-not ported). No kernel of the repository runs here: the reference's scan
+function). As the reference's two-level scan does, the steps run in
+chunks of ``TIME_CHUNK`` and, when a gradient is to be taken, each chunk
+runs under ``torch.utils.checkpoint`` (non-reentrant): the backward pass
+keeps S / TIME_CHUNK states instead of one [B, H, N, N] state a step and
+recomputes a chunk's steps from its first state. That has no effect on
+the values. No kernel of the repository runs here: the reference's scan
 is ``lax.scan``, not Pallas.
 
 Prefill carries the state across the prompt; decode is one step against
@@ -26,10 +28,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, _init, matmul, rms_norm
 
 LORA_R = 64
+TIME_CHUNK = 128
 
 
 def rwkv_params(cfg: ModelConfig, *, generator, device):
@@ -85,6 +89,16 @@ def _shift_mix(x, x_prev, mu):
     return x + (shifted - x) * mu
 
 
+def _scan_chunk(r, k, v, w, bonus, s):
+    """Consecutive steps of the recurrence from state ``s``; the inputs
+    time-major [ck, B, H, N]. Returns (out [ck, B, H, N], last state)."""
+    outs = []
+    for t in range(r.shape[0]):
+        outs.append((r[t][..., None, :] @ s)[..., 0, :] + bonus[t])
+        s = w[t][..., :, None] * s + k[t][..., :, None] * v[t][..., None, :]
+    return torch.stack(outs), s
+
+
 def _time_mix_scan(r, k, v, w, u, state0):
     """r/k/v: [B, S, H, N]; w: [B, S, H, N] decay in (0, 1); u: [H, N];
     state0: [B, H, N, N]. Returns (out [B, S, H, N], state_S).
@@ -92,17 +106,31 @@ def _time_mix_scan(r, k, v, w, u, state0):
     Step t: ``o_t = r_t S + (sum_n r_t u k_t) v_t`` and ``S = w_t S +
     k_t^T v_t``, each product and sum rounded to its operands' dtype as
     the reference's step rounds it. The bonus ``(sum r u k) v`` does not
-    depend on S and is taken for every position at once."""
+    depend on S and is taken for every position at once. The steps run in
+    chunks of ``TIME_CHUNK`` (of 1 where S is no multiple of
+    ``min(TIME_CHUNK, S)``, as in the reference), each checkpointed when
+    a gradient is to be taken."""
     bonus = torch.sum(r * u * k, dim=-1, keepdim=True) * v
     # time-major, so that each step's slices are contiguous
     r, k, v, w, bonus = (t.transpose(0, 1).contiguous()
                          for t in (r, k, v, w, bonus))
+    S = r.shape[0]
+    ck = min(TIME_CHUNK, S)
+    if S % ck:
+        ck = 1
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, w, bonus, state0))
     s = state0
     outs = []
-    for t in range(r.shape[0]):
-        outs.append((r[t][..., None, :] @ s)[..., 0, :] + bonus[t])
-        s = w[t][..., :, None] * s + k[t][..., :, None] * v[t][..., None, :]
-    return torch.stack(outs, dim=1), s
+    for c in range(0, S, ck):
+        args = (r[c:c + ck], k[c:c + ck], v[c:c + ck], w[c:c + ck],
+                bonus[c:c + ck], s)
+        if remat:
+            o, s = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            o, s = _scan_chunk(*args)
+        outs.append(o)
+    return torch.cat(outs).transpose(0, 1), s
 
 
 def rwkv_block(x, p, cfg: ModelConfig, *, state=None):

@@ -49,6 +49,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
@@ -155,14 +156,17 @@ def embed_inputs(params, batch, cfg: ModelConfig, *, decode: bool = False):
     _check_family(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
+    # F.embedding, not indexing: on the CPU the backward of an indexed
+    # gather accumulates the rows of repeated tokens in a varying order,
+    # embedding's backward always in the tokens' order
     if cfg.family == "audio":
         # 0 + e_0 + e_1 + ..., each add in the parameters' dtype
         emb = params["embed"]
-        x = emb[0][tokens[..., 0]]
+        x = F.embedding(tokens[..., 0], emb[0])
         for i in range(1, cfg.n_codebooks):
-            x = x + emb[i][tokens[..., i]]
+            x = x + F.embedding(tokens[..., i], emb[i])
     else:
-        x = params["embed"][tokens]
+        x = F.embedding(tokens, params["embed"])
     if cfg.family == "vlm" and cfg.n_img_tokens and not decode:
         # patch embeddings, projected as JAX promotes (f32 embeddings and
         # bf16 weights multiply in f32), then cast to the embedding dtype
@@ -211,8 +215,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     layers in order (0 without experts).
 
     The recurrent families start from the states in ``caches`` where
-    they are given, as the reference does, and run without per-layer
-    remat (training them is not ported).
+    they are given, as the reference does.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
@@ -220,7 +223,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     x = embed_inputs(params, batch, cfg, decode=decode)
     if cfg.family == "rwkv":
         x, new_caches = _forward_rwkv(params, x, cfg, caches=caches,
-                                      decode=decode)
+                                      decode=decode, remat=_remat(mode, cfg))
     elif cfg.family == "hybrid":
         x, new_caches = _forward_hybrid(params, x, cfg, mode=mode,
                                         caches=caches, pos=pos)
@@ -238,7 +241,7 @@ def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
     result)."""
     decode = mode == "decode"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    remat = _remat(mode, cfg)
     new_caches: dict[str, Any] = {}
     for name, layers, use_moe in _layer_groups(params, cfg):
         group = caches[name] if decode else None
@@ -267,6 +270,12 @@ def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
     return logits, aux, new_caches
 
 
+def _remat(mode, cfg: ModelConfig) -> bool:
+    """Per-layer remat: a train forward under ``cfg.remat`` that is to be
+    differentiated runs each layer under ``torch.utils.checkpoint``."""
+    return mode == "train" and cfg.remat and torch.is_grad_enabled()
+
+
 def _layer_states(states, i):
     """Layer i's views of stacked ``[L, ...]`` states (None stays)."""
     return None if states is None else {k: v[i] for k, v in states.items()}
@@ -283,15 +292,21 @@ def _write_states(states, i, new):
         states[k][i].copy_(v)
 
 
-def _forward_rwkv(params, x, cfg: ModelConfig, *, caches, decode):
+def _forward_rwkv(params, x, cfg: ModelConfig, *, caches, decode,
+                  remat=False):
     """RWKV-6: the blocks in order, each from its state in ``caches``
-    (zeros where there are none). The new states are always collected,
-    as the reference collects them (they are small): stacked ``[L, ...]``,
-    or in decode written into ``caches`` in place."""
+    (zeros where there are none), each under a checkpoint with ``remat``.
+    The new states are always collected, as the reference collects them
+    (they are small): stacked ``[L, ...]``, or in decode written into
+    ``caches`` in place."""
     collected = []
     for i, p_l in enumerate(params["layers"]):
-        x, st = rwkv6.rwkv_block(x, p_l, cfg,
-                                 state=_layer_states(caches, i))
+        state = _layer_states(caches, i)
+        if remat:
+            x, st = checkpoint(rwkv6.rwkv_block, x, p_l, cfg, state=state,
+                               use_reentrant=False)
+        else:
+            x, st = rwkv6.rwkv_block(x, p_l, cfg, state=state)
         if decode:
             _write_states(caches, i, st)
         else:
@@ -308,8 +323,11 @@ def _forward_hybrid(params, x, cfg: ModelConfig, *, mode, caches, pos):
     cache). Returns (x, caches): in prefill the mamba states stacked
     ``[n_apps * (L // n_apps), ...]`` and the applications' keys and
     values ``[n_apps, B, S, KV, hd]``; in decode ``caches``, updated in
-    place; in train None."""
+    place; in train None. Under per-layer remat each mamba block and each
+    application of the shared block runs under its own checkpoint, as the
+    reference checkpoints the shared block apart from its layer scan."""
     decode = mode == "decode"
+    remat = _remat(mode, cfg)
     k = cfg.attn_every or cfg.n_layers
     n_apps = max(cfg.n_layers // k, 1)
     Lg = cfg.n_layers // n_apps
@@ -317,16 +335,26 @@ def _forward_hybrid(params, x, cfg: ModelConfig, *, mode, caches, pos):
     new_m, new_a = [], []
     for g in range(n_apps):
         for i in range(g * Lg, (g + 1) * Lg):
-            x, st = mamba2.mamba_block(x, params["layers"][i], cfg,
-                                       state=_layer_states(m_states, i))
+            state = _layer_states(m_states, i)
+            if remat:
+                x, st = checkpoint(mamba2.mamba_block, x, params["layers"][i],
+                                   cfg, state=state, use_reentrant=False)
+            else:
+                x, st = mamba2.mamba_block(x, params["layers"][i], cfg,
+                                           state=state)
             if decode:
                 _write_states(m_states, i, st)
             else:
                 new_m.append(st)
-        ac = _layer_states(caches["attn"], g) if decode else None
-        x, kv, _ = _tf_block(x, params["shared_attn"], cfg, use_moe=False,
-                             pos=pos if decode else None, cache=ac)
-        new_a.append(kv)
+        if remat:
+            x, _ = checkpoint(_train_block, x, params["shared_attn"], cfg,
+                              False, use_reentrant=False)
+        else:
+            ac = _layer_states(caches["attn"], g) if decode else None
+            x, kv, _ = _tf_block(x, params["shared_attn"], cfg,
+                                 use_moe=False, pos=pos if decode else None,
+                                 cache=ac)
+            new_a.append(kv)
     if decode:
         return x, caches
     if mode == "train":

@@ -66,8 +66,17 @@ class TreeNewtonConfig:
                                 # damped stats, reusing the cached factor
 
 
+#: a layer's parameter path; the reference stacks such leaves [L, ...]
+_LAYERED = re.compile(r"^(dense_layers|layers)/\d+/")
+
+
 def _eligible(path: str, leaf, cfg: TreeNewtonConfig) -> bool:
-    if leaf.dim() not in (2, 3):
+    """The reference's rule on the shape it sees: a leaf of 2 or 3 dims,
+    where a layer's leaf counts its stacked layer axis (so a layer's
+    [E, d, F] expert stack, [L, E, d, F] there, goes to AdamW). A layer's
+    vector has no rows of its own; no eligible name is one."""
+    ndim = leaf.dim() + (1 if _LAYERED.match(path) else 0)
+    if ndim not in (2, 3) or leaf.dim() < 2:
         return False
     din = leaf.shape[-2]
     if din % cfg.block != 0 or din > cfg.max_side:

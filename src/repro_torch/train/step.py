@@ -71,15 +71,6 @@ def _value_and_grad(params, batch, cfg: ModelConfig):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    if cfg.family != "dense":
-        # TreeNewton would whiten each unstacked [E, d, F] expert stack,
-        # which the reference leaves to AdamW, and no gradient through the
-        # expert loop or the recurrent scans is held to the reference
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            "A, 'Training of the vlm, audio, moe, rwkv and hybrid families "
-            "on the card')")
-
     def grads_of(params, batch):
         if tcfg.accum == 1:
             return _value_and_grad(params, batch, cfg)

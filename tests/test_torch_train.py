@@ -3,6 +3,13 @@ and its gradients, one AdamW step, TreeNewton's init, refactor, whitening
 and a whole step, gradient accumulation, the batched solver's per-block
 quantization, and the int8 error-feedback all-reduce on 4 gloo ranks.
 
+Then every family: loss_fn's gradients against jax.grad of the
+reference at each family's smoke config (one arch a family), remat's
+gradients bitwise the unchecked ones (rwkv6, zamba2), the reference's
+NaN SSD gradient over 128 positions (a fault of the reference),
+TreeNewton's matrices against the reference's for all 10 archs, and a
+MoE TreeNewton state through ``convert`` both ways.
+
 A tiny dense config (2 layers, d_model 128, d_ff 256, vocab 128, GQA
 4 / 2 heads, SwiGLU, per-layer remat). The weights and the optimizer's
 state are the reference's, carried over by ``convert``; tokens, labels
@@ -485,3 +492,272 @@ def test_ef_allreduce_4_ranks(jx):
         np.testing.assert_allclose(rk["residual"], want_res[i], rtol=0,
                                    atol=1e-6 * np.abs(want_res[i]).max())
     assert dp["err"] < 5e-2, dp
+
+
+# ---------------------------------------------------------------------------
+# every family: gradients, remat, TreeNewton's matrices
+# ---------------------------------------------------------------------------
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.models import rwkv6 as trwkv  # noqa: E402
+
+FAMILY_ARCHS = ["gemma-2b", "pixtral-12b", "musicgen-large",
+                "deepseek-v2-lite-16b", "rwkv6-3b", "zamba2-2.7b"]
+#: XLA's CPU backend without LLVM's costly passes, as
+#: tests/test_torch_zoo.py compiles the reference: IEEE f32 as it is
+_FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                 "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(scope="module")
+def rzoo():
+    """jax, the reference's configs, model and TreeNewton."""
+    jax = pytest.importorskip("jax")
+    from repro import configs
+    from repro.models import transformer as RT
+    from repro.optim import kfac
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, configs=configs,
+                                 T=RT, kfac=kfac)
+
+
+def _family_batch(cfg, seed, length):
+    """numpy tokens and next-token labels ([B, S], audio [B, S, C], a few
+    labels masked) and, for vlm, patch embeddings [B, n, d] f32."""
+    rng = np.random.default_rng(seed)
+    shape = (2, length + 1) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                               else ())
+    toks = rng.integers(0, cfg.vocab, shape).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    batch["labels"][0, :3] = -100
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _draw_nonzero(layers, family, rng):
+    """The recurrent layers' leaves that init sets to zero or one, drawn
+    anew (tests/test_torch_recurrent.py): at zero the token shift, the
+    bonus and the decay's offset do nothing, and their gradients would go
+    unchecked. ``layers`` maps names to numpy arrays, changed in place."""
+    draws = {"rwkv": {"mu": lambda s: rng.uniform(0.05, 0.95, s),
+                      "mu_c": lambda s: rng.uniform(0.05, 0.95, s),
+                      "w0": lambda s: rng.uniform(-1.0, 1.0, s),
+                      "u": lambda s: rng.standard_normal(s),
+                      "ln_x": lambda s: 0.2 * rng.standard_normal(s)},
+             "hybrid": {"A_log": lambda s: 0.5 * rng.standard_normal(s),
+                        "D": lambda s: rng.uniform(0.5, 1.5, s),
+                        "dt_bias": lambda s: 0.5 * rng.standard_normal(s)}}
+    for key, fn in draws.get(family, {}).items():
+        layers[key] = fn(layers[key].shape).astype(layers[key].dtype)
+
+
+def _family_params(rzoo, cfg, weak_decay=False):
+    """The reference's smoke parameters as numpy, the recurrent leaves
+    drawn nonzero; ``weak_decay`` lowers mamba's A_log by 4 (decays
+    exp(-dt e^A_log) near 1), so that the reference's SSD backward stays
+    finite over 128 positions (test_reference_fault_ssd_gradient)."""
+    jax = rzoo.jax
+    ref_np = jax.tree.map(np.asarray, jax.jit(
+        lambda k: rzoo.T.init_params(k, cfg))(jax.random.PRNGKey(0)))
+    ref_np["layers"] = dict(ref_np["layers"])
+    _draw_nonzero(ref_np["layers"], cfg.family, np.random.default_rng(7))
+    if weak_decay:
+        ref_np["layers"]["A_log"] = ref_np["layers"]["A_log"] - 4
+    return ref_np
+
+
+def _ref_value_and_grad(rzoo, cfg, ref_np, batch):
+    jax, jnp = rzoo.jax, rzoo.jnp
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    fn = jax.value_and_grad(lambda p, b: rzoo.T.loss_fn(p, b, cfg),
+                            has_aux=True)
+    jp = jax.tree.map(jnp.asarray, ref_np)
+    return jax.jit(fn).lower(jp, jb).compile(
+        compiler_options=_FAST_COMPILE)(jp, jb)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_grads(rzoo, arch):
+    """loss_fn and every gradient leaf of each family's smoke config (f32,
+    remat on in both packages; S = 32, the hybrid's S = 256: two SSD
+    chunks of 128, with weak decays, see _family_params) against
+    jax.value_and_grad of the reference: the loss at 1e-5 relative, the
+    aux loss at 1e-5 relative, each gradient within 2e-4 of its leaf's
+    largest entry, as the dense family above (f32 sums in other orders;
+    the MoE's routing is the same in both, the expert loop and its
+    combine differentiated)."""
+    jax = rzoo.jax
+    cfg = rzoo.configs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    hybrid = cfg.family == "hybrid"
+    ref_np = _family_params(rzoo, cfg, weak_decay=hybrid)
+    batch = _family_batch(cfg, 8, 256 if hybrid else 32)
+    (loss, m), grads = _ref_value_and_grad(rzoo, cfg, ref_np, batch)
+    from repro_torch.train.step import _value_and_grad
+    tparams = convert.model_params_from_reference(ref_np, tcfg,
+                                                  device="cpu")
+    tloss, tm, tgrads = _value_and_grad(
+        tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    assert abs(float(tloss) - float(loss)) <= 1e-5 * abs(float(loss))
+    assert abs(float(tm["aux"]) - float(m["aux"])) <= 1e-5 * abs(
+        float(m["aux"]))
+    _close_leaves(convert.model_params_to_numpy(tgrads),
+                  jax.tree.map(lambda x: np.asarray(x, np.float32), grads),
+                  2e-4, arch)
+
+
+def test_reference_fault_ssd_gradient(rzoo):
+    """A fault of the reference: its SSD takes exp of the whole [Q, Q]
+    segment sums and zeroes the upper triangle after it; over 128
+    positions of the smoke config's decays those sums pass f32's range,
+    exp gives inf, and the backward's 0 * inf makes the gradients NaN, so
+    the reference cannot train zamba2 on a sequence of 128 or more. The
+    port masks the exponent first: the same loss (1e-5 relative) and
+    finite gradients."""
+    jax = rzoo.jax
+    arch = "zamba2-2.7b"
+    cfg = rzoo.configs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    ref_np = jax.tree.map(np.asarray, rzoo.T.init_params(
+        jax.random.PRNGKey(0), cfg))
+    batch = _family_batch(cfg, 8, 128)
+    (loss, _), grads = _ref_value_and_grad(rzoo, cfg, ref_np, batch)
+    assert not np.isfinite(np.asarray(grads["embed"])).all()
+    from repro_torch.train.step import _value_and_grad
+    tloss, _, tgrads = _value_and_grad(
+        convert.model_params_from_reference(ref_np, tcfg, device="cpu"),
+        {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    assert abs(float(tloss) - float(loss)) <= 1e-5 * abs(float(loss))
+    for p, g in tadamw.leaves(tgrads):
+        assert torch.isfinite(g).all(), p
+
+
+def _counting(monkeypatch, module):
+    """Count the calls of ``module.checkpoint`` (still checkpointing)."""
+    calls = []
+    real = module.checkpoint
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(module, "checkpoint", counted)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b"])
+def test_remat_grads_bitwise(arch, monkeypatch):
+    """Remat has no numeric effect: loss and gradients with per-layer
+    remat (and rwkv's checkpointed TIME_CHUNK chunks) bitwise equal to a
+    run without any checkpoint, at S = 256 (rwkv: two chunks; the SSD:
+    two chunks of 128); the checkpoints did run."""
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    params = TT.init_params(tcfg, seed=0, device="cpu")
+    rng = np.random.default_rng(9)
+    for layer in params["layers"]:
+        drawn = {k: v.numpy().copy() for k, v in layer.items()}
+        _draw_nonzero(drawn, tcfg.family, rng)
+        if "A_log" in drawn:        # decays near 1 over the 256 positions
+            drawn["A_log"] -= 4
+        for k, v in drawn.items():
+            layer[k] = torch.from_numpy(v)
+    batch = {k: torch.from_numpy(v)
+             for k, v in _family_batch(tcfg, 10, 256).items()}
+    from repro_torch.train.step import _value_and_grad
+    layer_calls = _counting(monkeypatch, TT)
+    chunk_calls = _counting(monkeypatch, trwkv)
+    on = _value_and_grad(params, batch, tcfg.replace(remat=True))
+    n_ckpt = tcfg.n_layers + (2 if tcfg.family == "hybrid" else 0)
+    assert len(layer_calls) == n_ckpt
+    if tcfg.family == "rwkv":
+        assert trwkv.TIME_CHUNK == 128
+        # two chunks a layer in the forward and in the layer's recompute
+        assert len(chunk_calls) == 2 * 2 * tcfg.n_layers
+
+    def direct(fn, *a, use_reentrant=None, **kw):
+        return fn(*a, **kw)
+    monkeypatch.setattr(trwkv, "checkpoint", direct)
+    off = _value_and_grad(params, batch, tcfg.replace(remat=False))
+    assert torch.isfinite(on[0]) and torch.equal(on[0], off[0])
+    for (p, g), (_, h) in zip(tadamw.leaves(on[2]), tadamw.leaves(off[2])):
+        assert torch.isfinite(g).all() and torch.equal(g, h), p
+
+
+def _ref_tree_newton_paths(rzoo, cfg, block):
+    """The port's paths of the matrices the reference's kfac.init keeps
+    statistics for, each with its per-matrix shape (nb, block, block)."""
+    jax = rzoo.jax
+    shapes = jax.eval_shape(lambda: rzoo.kfac.init(
+        rzoo.T.init_params(jax.random.PRNGKey(0), cfg),
+        rzoo.kfac.TreeNewtonConfig(block=block)))
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            shapes["stats"])[0]:
+        name = "/".join(str(k.key) for k in path)
+        key, _, rest = name.partition("/")
+        if key in ("layers", "dense_layers"):
+            for i in range(leaf.shape[0]):
+                out[f"{key}/{i}/{rest}"] = tuple(leaf.shape[1:])
+        else:
+            out[name] = tuple(leaf.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_tree_newton_paths_match_reference(rzoo, arch):
+    """TreeNewton whitens exactly the reference's matrices for every arch
+    (smoke config, block 32): the same paths and per-matrix shapes in
+    kfac.init and in the whitening's groups; the MoE expert stacks
+    ([E, d, F] a layer, [L, E, d, F] stacked) go to AdamW."""
+    block = 32
+    want = _ref_tree_newton_paths(
+        rzoo, rzoo.configs.get_config(arch, smoke=True), block)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    tn = tkfac.TreeNewtonConfig(block=block)
+    params = TT.init_params(tcfg, seed=0, device="cpu")
+    got = tkfac.init(params, tn)
+    assert {p: tuple(s.shape) for p, s in got["stats"].items()} == want
+    grouped = [p for ps in tkfac.whiten_groups(params, tn).values()
+               for p in ps]
+    assert sorted(grouped) == sorted(want)
+    assert not [p for p in want if p.endswith(("moe/w_in", "moe/w_out"))]
+
+
+def test_convert_moe_tree_newton_state(rzoo):
+    """A TreeNewton state of deepseek-v2-lite's smoke config (one dense
+    layer, two MoE layers), its statistics and factors drawn at random,
+    crosses to the port (``dense_layers/0/...`` and ``layers/<i>/...``)
+    and back to the reference's layout bitwise."""
+    jax = rzoo.jax
+    arch = "deepseek-v2-lite-16b"
+    cfg = rzoo.configs.get_config(arch, smoke=True)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    params = jax.tree.map(np.asarray, rzoo.T.init_params(
+        jax.random.PRNGKey(0), cfg))
+    state = jax.tree.map(np.asarray, rzoo.kfac.init(
+        params, rzoo.kfac.TreeNewtonConfig(block=32)))
+    rng = np.random.default_rng(12)
+    for part in ("stats", "factors"):
+        state[part] = jax.tree.map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32),
+            state[part])
+    state["count"] = np.int32(5)
+    port = convert.opt_state_from_reference(state, params, tcfg,
+                                            device="cpu")
+    assert port["count"] == 5
+    assert "dense_layers/0/mlp/w_in" in port["stats"]
+    assert {f"layers/{i}/attn/wo" for i in range(2)} <= set(port["stats"])
+    np.testing.assert_array_equal(
+        port["stats"]["layers/1/attn/wo"].numpy(),
+        state["stats"]["layers"]["attn"]["wo"][1])
+    back = convert.opt_state_to_numpy(port)
+    want = {p: a for p, a in _leaves(state["stats"]).items()
+            if a is not None}
+    assert set(back["stats"]) == set(want)
+    for p, a in want.items():
+        assert np.array_equal(back["stats"][p], a), p
+        assert np.array_equal(back["factors"][p],
+                              _leaves(state["factors"])[p]), p
+    for k in ("m", "v"):
+        for p, a in _leaves(state["adam"][k]).items():
+            assert np.array_equal(_leaves(back["adam"][k])[p], a), (k, p)
+    assert back["count"] == 5 and back["adam"]["count"] == 0

@@ -414,12 +414,18 @@ def test_convert_round_trip(jx, arch):
                                   "deepseek-v2-lite-16b", "rwkv6-3b",
                                   "zamba2-2.7b"])
 def test_train_step_refuses_the_served_families(arch):
-    """Training these families is not ported: TreeNewton would whiten the
-    unstacked expert stacks the reference leaves to AdamW, and no gradient
-    of them (the experts, the recurrent scans) is held to the reference.
-    The step factory says so."""
-    from repro_torch.train import TrainConfig, make_train_step
+    """The step factory refuses none of these families any more (it did
+    until their gradients were held to the reference,
+    tests/test_torch_train.py::test_family_grads): one step of each
+    optimizer on the smoke config gives a finite loss and advances the
+    step."""
+    from repro_torch.train import TrainConfig, init_state, make_train_step
     cfg = tconfigs.get_config(arch, smoke=True)
+    batch = _batch(cfg, 4)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    batch["labels"] = batch["tokens"]
     for opt in ("adamw", "tree_newton"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            make_train_step(cfg, TrainConfig(optimizer=opt))
+        tcfg = TrainConfig(optimizer=opt)
+        state = init_state(cfg, tcfg, seed=0, device="cpu")
+        state, m = make_train_step(cfg, tcfg)(state, batch)
+        assert state["step"] == 1 and torch.isfinite(m["loss"])
