@@ -107,8 +107,14 @@ result line. Phases:
    ``TOL[levels[0]]`` of the blocked factor of the same matrix; f32x3_f64
    at n = 4096; the packed storage (``TreeSPD``, ``tree_potrf_packed``)
    at n = 16384 for f16x3_f32 and int8_f32: its bytes against
-   ``storage_ratio`` and its factor against the dense tree factor. Then
-   ``syrk_race``: the paper's Fig. 4 race at the factor's top-level
+   ``storage_ratio`` and its factor against the dense tree factor.
+   ``tree_stacks``: ``tree_potrf`` of a stack of 64 SPD blocks of 512 at
+   leaf 128 (TreeNewton's refactor with ``engine="tree"``), pure_f32 and
+   bf16_f32: its launches against ``tree_stack_schedule`` (a batched
+   launch a potrf leaf and a node GEMM, ``trsm_leaf``/``syrk_leaf`` once
+   a matrix), every block against its 2-D factor (within ``TOL``; how
+   many bitwise) and two blocks against the plain version; its time and
+   the 64 2-D factors'. Then ``syrk_race``: the paper's Fig. 4 race at the factor's top-level
    trailing update (8192 x 8192, k = 8192), tree-SYRK against the flat
    ``syrk_packed`` called through ``ops.syrk(packed=True)``.
 5. ``refine``: ``refine_solve`` with 16 right-hand sides at n = 16384,
@@ -171,7 +177,22 @@ result line. Phases:
    cached one off the fingerprint's samples, which must reuse the factor
    and reach its target against its own matrix; a matrix of the wrong
    shape refused on rank 0; every follower through the same calls; a smoke
-   run of the tuner's distributed grid, printed only. ``census``: the tree
+   run of the tuner's distributed grid, printed only. ``generate_mesh``
+   (after ``dist``): model serving under a (2, 2) ``data x model`` mesh of
+   4 ranks sharing the card, layout ``tp`` (``drive.run_mesh_cases``;
+   DTensor's collectives staged through host memory by
+   ``launch/hostwire.py``): gemma-2b and deepseek-v2-lite at f32 and 2
+   layers, 4 x 256 + 4 (the MoE dropless at EP = 2), whose prefill and
+   first decode logits must lie within ``MESH_LOGIT_RTOL`` of the
+   single-card port's on each rank and whose greedy tokens (serve steps
+   and ``generate``) must equal its, teacher-forced; the expert-parallel
+   MoE of deepseek-v2-lite's full width on 512 f32 tokens against
+   ``moe_ffn_dense_reference`` within ``_moe_tol``, finite at capacity
+   1.0; gemma-2b full (bf16, 4 x 1024 + 8) and deepseek-v2-lite cut to 4
+   of 27 layers (4 x 1024 + 4), each rank's prefill ms, decode ms a step,
+   peak GiB, bytes by collective, and flash launches a prefill equal to
+   the attention layers; every parameter and cache shard the shape its
+   rule gives. ``census``: the tree
    census of each ladder at n = 16384 (GEMM and leaf FLOPs by type, the low-precision
    share, its model time on ``PEAK_FLOPS``) and the blocked plan's dot
    FLOPs, beside the ``path`` and ``tree_path`` lines' ``factor_ms``;
@@ -4998,6 +5019,258 @@ def train_family_cpu_agreement(arch, seed):
             "param_max_abs_err": err, "lr": cm["lr"]}
 
 
+# ---------------------------------------------------------------------------
+# the tree recursion on stacks (TreeNewton's refactor, engine="tree")
+# ---------------------------------------------------------------------------
+TREE_STACK_KERNELS = ("potrf_leaf_batched", "tri_inv_leaf_batched",
+                      "qgemm_batched", "trsm_leaf", "syrk_leaf")
+
+
+def tree_stack_schedule(cfg, n, N) -> dict:
+    """Launches, by entry of KERNELS, of tree_potrf on an (N, n, n)
+    stack: a batched potrf_leaf a potrf leaf, a batched qgemm a node of
+    the right solves and SYRKs, a batched tri_inv_leaf and N trsm_leaf a
+    right-solve leaf, N syrk_leaf a SYRK leaf."""
+    want = dict.fromkeys(KERNELS, 0)
+
+    def walk(m, leaf):
+        if m <= cfg.leaf:
+            leaf()
+            return
+        want["qgemm_batched"] += 1
+        m1 = cfg.split(m)
+        walk(m1, leaf)
+        walk(m - m1, leaf)
+
+    def trsm_leaf():
+        want["tri_inv_leaf_batched"] += 1
+        want["trsm_leaf"] += N
+
+    def syrk_leaf():
+        want["syrk_leaf"] += N
+
+    def potrf(m):
+        if m <= cfg.leaf:
+            want["potrf_leaf_batched"] += 1
+            return
+        m1 = cfg.split(m)
+        potrf(m1)
+        walk(m1, trsm_leaf)
+        walk(m - m1, syrk_leaf)
+        potrf(m - m1)
+
+    potrf(n)
+    return want
+
+
+def tree_stacks_run(name, N, n, leaf, seed):
+    """tree_potrf of a stack of N SPD blocks of order n at ``leaf`` on
+    the card (the stack recursion: K-FAC's refactor with engine="tree"),
+    timed once after a warm-up; its launches against
+    :func:`tree_stack_schedule`; every block against its own 2-D factor
+    on the card (how many are bitwise equal, and the largest difference
+    relative to the block's largest entry, within TOL) and two blocks
+    against the plain version (the same call on the CPU) within TOL."""
+    from repro_torch.core import tree_potrf
+    from repro_torch.core.precision import PAPER_CONFIGS
+    cfg = dataclasses.replace(PAPER_CONFIGS[name], leaf=leaf, engine="tree")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = _kfac_stack(gen, N, n)
+    tree_potrf(a[:2], cfg)
+    before = launch_counts()
+    l, ms = timed_once(lambda: tree_potrf(a, cfg))
+    after = launch_counts()
+    got = {k: after[k] - before[k] for k in KERNELS}
+    want = tree_stack_schedule(cfg, n, N)
+    if got != want:
+        raise AssertionError(f"tree_stacks {name}: launches "
+                             f"{ {k: v for k, v in got.items() if v} } != "
+                             f"the schedule "
+                             f"{ {k: v for k, v in want.items() if v} }")
+    tol = TOL[cfg.levels[0]]
+    one = torch.stack([tree_potrf(a[i], cfg) for i in range(N)])
+    bitwise = sum(bool(torch.equal(l[i], one[i])) for i in range(N))
+    err_2d = _blocks_err(f"tree_stacks {name} stack vs 2-D", l, one, tol)
+    sample = [0, N - 1]
+    plain = tree_potrf(a[sample].cpu(), cfg)
+    err_plain = _blocks_err(f"tree_stacks {name} card vs plain",
+                            l[sample].cpu(), plain, tol)
+    _, ms_2d = timed_once(lambda: [tree_potrf(a[i], cfg) for i in range(N)])
+    return {"phase": "tree_stacks", "ladder": name, "N": N, "n": n,
+            "leaf": leaf, "ms": ms, "ms_2d_one_by_one": ms_2d,
+            "launches": {k: v for k, v in got.items() if v},
+            "schedule_ok": True, "bitwise_2d_blocks": bitwise,
+            "rel_err_vs_2d": err_2d, "rel_err_vs_plain": err_plain,
+            "plain_blocks": sample, "tol": tol}
+
+
+# ---------------------------------------------------------------------------
+# model serving under a (2, 2) data x model mesh of 4 ranks on the card
+# ---------------------------------------------------------------------------
+MESH_NOTE = ("4 gloo processes sharing one card as a (2, 2) data x model "
+             "mesh, their collectives staged through host memory "
+             "(launch/hostwire.py): the port's sharding, kernels and "
+             "numerics on the card, not a node; every time is theirs")
+#: f32 at 2 layers: the mesh's logits against the single-card port's
+MESH_LOGIT_RTOL = 1e-4
+#: (arch, seed, config overrides): the MoE gate runs dropless at EP = 2
+#: (capacity factor 2: the capacity ceil(T K / 2) 2 >= T K), since with
+#: expert parallelism the reference's capacity drops assignments that
+#: one shard keeps (a decode step's 2 tokens a rank: 12 assignments, a
+#: capacity of 7 a shard at 1.25)
+MESH_GATE_RUNS = (("gemma-2b", 1002, None),
+                  ("deepseek-v2-lite-16b", 1004,
+                   {"moe_capacity_factor": 2.0}))
+#: full width, bf16, layout tp: (arch, layers or None, B, S, new tokens)
+MESH_FULL_RUNS = (("gemma-2b", None, 4, 1024, 8),
+                  ("deepseek-v2-lite-16b", 4, 4, 1024, 4))
+MESH_CUTS = {"deepseek-v2-lite-16b": "depth cut to 4 of 27 layers: its "
+             "dense layer and 3 MoE layers, at full width"}
+
+
+def generate_mesh_cases():
+    """The generate_mesh phase's rank cases: the f32 gates, the MoE
+    oracle, then the full-width bf16 runs."""
+    from repro_torch import configs
+    cases = [{"kind": "mesh_serve", "arch": arch, "smoke": False,
+              "n_layers": 2, "dtype": "f32", "over": over, "B": 4,
+              "S": 256, "n_tokens": 4, "seed": seed, "one_rank": True}
+             for arch, seed, over in MESH_GATE_RUNS]
+    moe_cfg = configs.get_config("deepseek-v2-lite-16b").replace(
+        param_dtype="f32", activ_dtype="f32")
+    cases.append({"kind": "moe_ep", "cfg": dataclasses.asdict(moe_cfg),
+                  "seed": 1006, "x_shape": (4, 128, moe_cfg.d_model)})
+    cases += [{"kind": "mesh_serve", "arch": arch, "smoke": False,
+               "n_layers": layers, "B": B, "S": S, "n_tokens": n,
+               "seed": 1010 + i, "one_rank": False, "generate": False}
+              for i, (arch, layers, B, S, n) in enumerate(MESH_FULL_RUNS)]
+    return cases, moe_cfg
+
+
+def _mesh_rank_lines(res):
+    """Per rank: prefill ms, decode ms a step, peak GiB, bytes by
+    collective."""
+    return [{"prefill_ms": r["prefill_s"] * 1e3,
+             "decode_ms_per_step": [t * 1e3 for t in r["decode_s"]],
+             "peak_gib": r.get("peak_gib"),
+             "flash_launches_prefill": r["flash_launches_prefill"],
+             "wire_prefill_bytes": r["wire_prefill"],
+             "wire_decode_bytes": r["wire_decode"]} for r in res["ranks"]]
+
+
+def generate_mesh_phase(kind, smi):
+    """The mesh serving cases on DIST_RANKS ranks sharing the card; every
+    gate checked here. Returns the lines and the launches summed over the
+    ranks and cases, by entry of KERNELS."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import drive, launch
+    from repro_torch.models import moe
+    torch.cuda.empty_cache()
+    cases, moe_cfg = generate_mesh_cases()
+    t0 = time.perf_counter()
+    results = launch(drive.run_mesh_cases, DIST_RANKS, (cases, "cuda"),
+                     device="cuda", timeout=900)[0]
+    wall = time.perf_counter() - t0
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    batched = dict.fromkeys(ops.BATCHED, 0)
+    routes = dict.fromkeys(ops.FLASH_ROUTES, 0)
+    lines = []
+    base = {"phase": "generate_mesh", "ranks": DIST_RANKS, "mesh": [2, 2],
+            "layout": "tp", "device": kind, "nvidia_smi": smi,
+            "note": MESH_NOTE}
+    for case, res in zip(cases, results):
+        line = dict(base)
+        if case["kind"] == "moe_ep":
+            g = torch.Generator(device="cuda").manual_seed(case["seed"])
+            p = moe.moe_params(moe_cfg, generator=g, device="cuda")
+            x = torch.randn(case["x_shape"], generator=g, device="cuda")
+            tol = _moe_tol(x, p, moe_cfg, 2.0 ** -24)
+            dense = torch.as_tensor(res["dense"])
+            want = moe.moe_ffn_dense_reference(x, p, moe_cfg).cpu()
+            check_close("generate_mesh moe: the rank's dense oracle",
+                        dense, want, 0, tol)
+            first, capped = res["cases"]
+            err = check_close("generate_mesh moe: expert-parallel routed",
+                              torch.as_tensor(first["routed"]), want, 0, tol)
+            if not capped["finite"]:
+                raise AssertionError("generate_mesh moe: non-finite output "
+                                     "at capacity_factor 1.0")
+            line.update({"case": "moe_ep", "arch": moe_cfg.name,
+                         "dtype": "f32", "ep": 2,
+                         "tokens": int(x.shape[0] * x.shape[1]),
+                         "max_abs_err_vs_dense": err, "tol": tol,
+                         "tol_is": _MOE_TOL, "aux": first["aux"],
+                         "capacity_1_finite": True})
+            lines.append(line)
+            continue
+        cfg = configs.get_config(case["arch"]).replace(
+            n_layers=case["n_layers"] or configs.get_config(
+                case["arch"]).n_layers)
+        per = flash_per_prefill(cfg)
+        for rank, r in enumerate(res["ranks"]):
+            if r["flash_launches_prefill"] != per:
+                raise AssertionError(
+                    f"generate_mesh {case['arch']} rank {rank}: "
+                    f"{r['flash_launches_prefill']} flash launches in the "
+                    f"prefill, {per} attention layers")
+            c = r["counters"]
+            for k, v in c["launches"].items():
+                launches[k] += v
+            for k, v in c["batched"].items():
+                batched[k] += v
+            for k, v in r["flash_routes"].items():
+                routes[k] += v
+        line.update({"case": "mesh_serve", "arch": case["arch"],
+                     "n_layers": cfg.n_layers,
+                     "dtype": case.get("dtype") or cfg.param_dtype,
+                     "batch": case["B"], "prompt": case["S"],
+                     "new_tokens": case["n_tokens"],
+                     "param_shards_checked": res["param_shards"],
+                     "cache_shards_checked": res["cache_shards"],
+                     "per_rank": _mesh_rank_lines(res)})
+        if case["arch"] in MESH_CUTS and case["n_layers"]:
+            line["cut"] = MESH_CUTS[case["arch"]]
+        if case.get("one_rank"):
+            one = res["one_rank"]
+            errs = {}
+            for key in ("prefill_logits", "decode_logits"):
+                want = one[key]
+                scale = max(1.0, float(abs(want).max()))
+                errs[key] = float(abs(res[key] - want).max())
+                if not errs[key] <= MESH_LOGIT_RTOL * scale:
+                    raise AssertionError(
+                        f"generate_mesh {case['arch']} f32: {key} "
+                        f"{errs[key]} from the single-card port's, over "
+                        f"{MESH_LOGIT_RTOL} x {scale}")
+            agree = {"teacher_forced": res["teacher_forced"],
+                     "generate": bool((res["generated"]
+                                       == one["generated"]).all()),
+                     "serve_steps": bool((res["greedy"]
+                                          == one["generated"]).all())}
+            if not all(agree.values()):
+                raise AssertionError(
+                    f"generate_mesh {case['arch']} f32: the mesh's tokens "
+                    f"differ from the single-card port's greedy ones "
+                    f"({agree}): mesh {res['greedy'].tolist()}, "
+                    f"{res['generated'].tolist()}, single card "
+                    f"{one['generated'].tolist()}")
+            line.update({"gate": "f32 vs the single-card port",
+                         "overrides": case["over"],
+                         "max_abs_diff": errs,
+                         "tol": f"{MESH_LOGIT_RTOL} x max(1, max|logits|)",
+                         "generate_equals_single_card": True,
+                         "teacher_forced_greedy": True})
+        lines.append(line)
+    lines.append({"phase": "generate_mesh_launches", "wall_s": wall,
+                  "summed_over_ranks": launches,
+                  "flash_routes_summed_over_ranks": routes})
+    if launches["flash_attention"] == 0:
+        raise AssertionError("flash_attention was not launched on the "
+                             "generate_mesh path")
+    return lines, split_launches(launches, batched, routes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5080,6 +5353,9 @@ def main() -> int:
           + [lambda: tree_path_run("f32x3_f64", 4096, 810),
              lambda: tree_packed_run("f16x3_f32", N_MAIN, 811),
              lambda: tree_packed_run("int8_f32", N_MAIN, 812)])
+    drive("tree_stacks", TREE_STACK_KERNELS,
+          [lambda: tree_stacks_run("pure_f32", 64, 512, 128, 830),
+           lambda: tree_stacks_run("bf16_f32", 64, 512, 128, 831)])
     drive("syrk_race", ("syrk_packed", "syrk_leaf", "qgemm"),
           [lambda: syrk_race(N_MAIN, 820)])
     drive("refine", REFINE_KERNELS,
@@ -5100,6 +5376,11 @@ def main() -> int:
         emit(line)
     for k in launches:
         launches[k] += dist_launches.get(k, 0)
+    mesh_lines, mesh_launches = generate_mesh_phase(kind, smi)
+    for line in mesh_lines:
+        emit(line)
+    for k in launches:
+        launches[k] += mesh_launches.get(k, 0)
 
     # model serving: gemma-2b at full width and depth, bf16
     cfg, params, gib = _model("gemma-2b", 900)

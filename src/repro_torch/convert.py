@@ -29,6 +29,12 @@ per layer, statistics and factors per path ``layers/<i>/...`` as
 ``(nb, block, block)``, host integer counts); :func:`opt_state_to_numpy`
 goes back, the layers stacked again.
 
+Onto a device mesh: :func:`place_params` places the reference's numpy
+parameters, or the port's own, by ``launch.sharding.param_spec``; every
+rank holds the whole tensors and keeps its shard of each (no collective),
+a ``DTensor``. :func:`place_batch` places a batch by ``batch_shardings``
+and :func:`place_caches` the serving caches by ``cache_spec``.
+
 A whole train state (``params``, ``opt``, ``step``) crosses through
 :func:`train_state_layout`: the state in the reference's layout (its
 names, the layers stacked) without a copy, each stacked leaf a
@@ -321,3 +327,71 @@ __all__ = ["config_from_fields", "factor_from_numpy", "factor_to_numpy",
            "refine_config_from_fields", "train_state_from_layout",
            "train_state_layout", "treespd_from_reference",
            "treespd_to_numpy"]
+
+
+# ---------------------------------------------------------------------------
+# onto a device mesh
+# ---------------------------------------------------------------------------
+def _shard_of(t, spec, mesh):
+    """This rank's block of a whole tensor ``t`` under ``spec``: a
+    dimension over axes (a, b, ...) is cut into prod(sizes) blocks, the
+    rank's block index read major to minor over those axes."""
+    from repro_torch.launch.sharding import mesh_shape
+    shape = mesh_shape(mesh)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, n = 0, 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            idx = idx * shape[a] + mesh.get_local_rank(a)
+            n *= shape[a]
+        w = t.shape[d] // n
+        t = t.narrow(d, idx * w, w)
+    return t.contiguous()
+
+
+def _placed(t, spec, mesh):
+    """``t`` (a whole tensor or a DTensor) placed by ``spec``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.sharding import placements
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements(spec, mesh))
+    return DTensor.from_local(_shard_of(t, spec, mesh), mesh,
+                              placements(spec, mesh), run_check=False)
+
+
+def _tree_placed(tree, spec_of, mesh):
+    """Each leaf of ``tree`` placed by ``spec_of(path, leaf)``."""
+    from repro_torch.launch.sharding import _tree_map
+    return _tree_map(lambda p, t: _placed(t, spec_of(p, t), mesh), tree)
+
+
+def place_params(params, cfg, mesh, *, layout: str = "tp", device="cuda"):
+    """The parameters as DTensors on ``mesh``, each leaf placed by
+    ``param_spec``. ``params`` is the port's pytree, or the reference's
+    (numpy leaves, layers stacked), which :func:`model_params_from_reference`
+    brings to ``device`` first. Every rank calls it with the same
+    parameters."""
+    from repro_torch.launch.sharding import param_spec
+    if not torch.is_tensor(params["embed"]):
+        params = model_params_from_reference(params, cfg, device)
+    return _tree_placed(
+        params, lambda p, t: param_spec(p, t, cfg, mesh, layout), mesh)
+
+
+def place_batch(batch, sharder, *, accum: int = 1):
+    """A batch (``tokens``, and ``patch_embeds`` or ``labels``) as DTensors
+    placed by ``batch_shardings``; every rank holds the whole batch."""
+    from repro_torch.launch.sharding import batch_shardings
+    specs = batch_shardings(batch, sharder, sharder.mesh, accum)
+    return {k: _placed(torch.as_tensor(v), specs[k], sharder.mesh)
+            for k, v in batch.items()}
+
+
+def place_caches(caches, cfg, sharder):
+    """Serving caches (``[L, B, S, ...]`` leaves, DTensors or whole
+    tensors) placed by ``cache_spec``."""
+    from repro_torch.launch.sharding import cache_spec
+    return _tree_placed(
+        caches, lambda p, t: cache_spec(p, t, cfg, sharder, sharder.mesh),
+        sharder.mesh)

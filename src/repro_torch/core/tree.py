@@ -22,16 +22,21 @@ result is returned. The per-block scales stay 0-d tensors on the
 operands' device and go to the kernels as such, so no node waits for the
 card.
 
-``tree_trsm_left`` also takes a stack of N independent systems, ``b``
-(N, n, k) and ``l`` (N, n, n), the reference's function under
-``jax.vmap`` (K-FAC's whitening): every node's GEMM is one batched
-``qgemm`` and every leaf one batched ``tri_inv_leaf`` and ``qgemm``, with
-each system's quantization scales and storage roundings its own
-(``quantize.quant_block`` of a 3-D stack). ``tree_potrf`` takes a stack
-whose blocks are at most one leaf (one batched ``potrf_leaf``) and
-refuses a stack of larger blocks: the recursion's right solves and SYRKs
-have no batched form yet (ROADMAP C), and one recursion a matrix would
-cost thousands of launches a K-FAC refactor.
+``tree_potrf`` and ``tree_trsm_left`` also take a stack of N
+independent matrices, ``a`` (N, n, n) or ``b`` (N, n, k) with ``l``
+(N, n, n): the reference's functions under ``jax.vmap`` (K-FAC's refactor
+and whitening). The recursion is the same; every view it takes indexes
+the last two dimensions, so each node's GEMM is one batched ``qgemm``
+over the N matrices, each potrf leaf one batched ``potrf_leaf`` and each
+left-solve leaf one batched ``tri_inv_leaf`` and ``qgemm``. The right
+solves' and the SYRKs' leaves of a stack go through ``ops.trsm`` and
+``ops.syrk``, which on the card invert the N leaves in one batched
+``tri_inv_leaf`` and then launch ``trsm_leaf`` / ``syrk_leaf`` once a
+matrix (those kernels take one matrix). Each matrix keeps its own
+quantization scales and storage roundings (``quantize.quant_block`` of a
+3-D stack takes the absmax per matrix), as under ``vmap``, and every
+matrix of a stack is factored by the same kernels, in the same order, as
+the 2-D factor of that matrix.
 
 The padding helpers (``pad_spd``, ``pad_factor``) are shared with the
 blocked engine and the solve entry points.
@@ -75,8 +80,9 @@ def _sym_from_lower(a):
 # the recursion, in place on views of a working buffer
 # ---------------------------------------------------------------------------
 def _potrf_into(w, cfg: PrecisionConfig, level: int) -> None:
-    """Alg. 1 on the lower triangle of ``w``: its lower blocks become L;
-    the strict upper blocks off the diagonal leaves are left stale."""
+    """Alg. 1 on the lower triangle of ``w`` (or of each matrix of a
+    stack): its lower blocks become L; the strict upper blocks off the
+    diagonal leaves are left stale."""
     n = w.shape[-1]
     if n <= cfg.leaf:
         name = cfg.name_at(level)
@@ -85,15 +91,15 @@ def _potrf_into(w, cfg: PrecisionConfig, level: int) -> None:
         w.copy_(_round_to(out.to(w.dtype), name, cfg))
         return
     n1 = cfg.split(n)
-    _potrf_into(w[:n1, :n1], cfg, level + 1)
-    _trsm_into(w[n1:, :n1], w[:n1, :n1], cfg, level)
-    _syrk_into(w[n1:, n1:], w[n1:, :n1], -1.0, 1.0, cfg, level)
-    _potrf_into(w[n1:, n1:], cfg, level + 1)
+    _potrf_into(w[..., :n1, :n1], cfg, level + 1)
+    _trsm_into(w[..., n1:, :n1], w[..., :n1, :n1], cfg, level)
+    _syrk_into(w[..., n1:, n1:], w[..., n1:, :n1], -1.0, 1.0, cfg, level)
+    _potrf_into(w[..., n1:, n1:], cfg, level + 1)
 
 
 def _trsm_into(x, l, cfg: PrecisionConfig, level: int) -> None:
     """Alg. 2: ``x <- x L^-T``, splitting the triangle dimension."""
-    n = x.shape[1]
+    n = x.shape[-1]
     name = cfg.name_at(level)
     if n <= cfg.leaf:
         high = cfg.high_dtype
@@ -102,16 +108,16 @@ def _trsm_into(x, l, cfg: PrecisionConfig, level: int) -> None:
         x.copy_(_round_to(r.to(x.dtype), name, cfg))
         return
     n1 = cfg.split(n)
-    _trsm_into(x[:, :n1], l[:n1, :n1], cfg, level + 1)
+    _trsm_into(x[..., :n1], l[..., :n1, :n1], cfg, level + 1)
     # B2 <- B2 - B1 L21^T  (the exposed GEMM, low precision + quantization)
     q = cfg.needs_quant(level)
-    b1q, s1 = quant_block(x[:, :n1], name, q)
-    l21q, s2 = quant_block(l[n1:, :n1], name, q)
-    b2 = x[:, n1:]
+    b1q, s1 = quant_block(x[..., :n1], name, q)
+    l21q, s2 = quant_block(l[..., n1:, :n1], name, q)
+    b2 = x[..., n1:]
     ops.qgemm(b1q, l21q, -(s1 * s2), c=b2, beta=1.0, trans_b=True,
               out_dtype=x.dtype, out=b2)
     _round_into(b2, name, cfg)
-    _trsm_into(b2, l[n1:, n1:], cfg, level + 1)
+    _trsm_into(b2, l[..., n1:, n1:], cfg, level + 1)
 
 
 def _syrk_into(c, a, alpha, beta, cfg: PrecisionConfig, level: int) -> None:
@@ -127,15 +133,15 @@ def _syrk_into(c, a, alpha, beta, cfg: PrecisionConfig, level: int) -> None:
         _round_into(c, name, cfg)
         return
     n1 = cfg.split(n)
-    _syrk_into(c[:n1, :n1], a[:n1], alpha, beta, cfg, level + 1)
+    _syrk_into(c[..., :n1, :n1], a[..., :n1, :], alpha, beta, cfg, level + 1)
     # C21 <- beta C21 + alpha A2 A1^T  (the exposed GEMM)
-    a2q, s2 = quant_block(a[n1:], name, q)
-    a1q, s1 = quant_block(a[:n1], name, q)
-    c21 = c[n1:, :n1]
+    a2q, s2 = quant_block(a[..., n1:, :], name, q)
+    a1q, s1 = quant_block(a[..., :n1, :], name, q)
+    c21 = c[..., n1:, :n1]
     ops.qgemm(a2q, a1q, alpha * s1 * s2, c=c21, beta=beta, trans_b=True,
               out_dtype=c.dtype, out=c21)
     _round_into(c21, name, cfg)
-    _syrk_into(c[n1:, n1:], a[n1:], alpha, beta, cfg, level + 1)
+    _syrk_into(c[..., n1:, n1:], a[..., n1:, :], alpha, beta, cfg, level + 1)
 
 
 def _trsm_left_into(x, l, cfg: PrecisionConfig, trans: bool,
@@ -190,15 +196,11 @@ def tree_potrf(a, cfg: PrecisionConfig, *, level: int = 0):
     """Lower Cholesky factor of SPD ``a`` (paper Alg. 1). Reads the lower
     triangle only; returns a new L with a zeroed upper triangle.
     ``a.shape[-1]`` must be a multiple of ``cfg.leaf`` (use
-    :func:`pad_spd` otherwise). A stack (N, n, n) of blocks of at most
-    one leaf gives the N factors in one batched launch."""
+    :func:`pad_spd` otherwise). A stack (N, n, n) gives the N factors,
+    each as its own 2-D factor would be (the reference under
+    ``jax.vmap``)."""
     n = a.shape[-1]
     assert a.dim() in (2, 3) and a.shape[-2:] == (n, n), a.shape
-    if a.dim() == 3 and n > cfg.leaf:
-        raise NotImplementedError(
-            f"tree_potrf of a stack of ({n} x {n}) blocks, larger than the "
-            f"leaf {cfg.leaf}: the batched recursion is ROADMAP C's open "
-            "item; factor such stacks with blocked_potrf")
     w = _work(a)
     _potrf_into(w, cfg, level)
     return w.tril_()

@@ -41,6 +41,12 @@ stride (3-D operands), the reference's kernels under ``jax.vmap``
 ``tri_inv_batched`` (a stack of tiles, such as the diagonal tiles of one
 factor). ``BATCHED`` counts those launches by kernel; they are part of
 ``LAUNCHES`` too (``LAUNCHES[k] - BATCHED[k]`` launches took one matrix).
+The right form of ``trsm`` and ``syrk`` take a stack too (the tree
+recursion's leaves on a stack): their kernels take one matrix, so on the
+card a stack costs one launch a matrix, each counted in ``LAUNCHES`` as a
+launch of one matrix (the right ``trsm`` first inverts the N leaves in
+one batched ``tri_inv_leaf``); each matrix's result is bitwise what the
+2-D call on that matrix gives.
 Their routes go to the route counts as above, the pairs of all N matrices
 to ``PANEL_ROUTES``, and ``TILES`` counts the tiles of every
 ``potrf_leaf`` and ``tri_inv_leaf`` launch.
@@ -173,10 +179,17 @@ def trsm(b, l, *, side="right", trans=True, linv=None):
     form, ``qgemm`` for the left ones. On the CPU without ``linv`` it is
     a triangular solve (:func:`~repro_torch.kernels.ref.trsm_ref`). The
     left forms also take N systems, ``b`` (N, n, k) and ``l`` (N, n, n):
-    one batched ``tri_inv_leaf`` and one batched ``qgemm``."""
-    if side != "left" and b.dim() == 3:
-        raise NotImplementedError("trsm: the right form takes one matrix")
+    one batched ``tri_inv_leaf`` and one batched ``qgemm``; the right form
+    takes N systems as one batched ``tri_inv_leaf`` and a ``trsm_leaf``
+    a system."""
     card = _on_card(b, l, linv)
+    if side == "right" and b.dim() == 3:
+        if card and linv is None:
+            linv = tri_inv_batched(l)
+        return torch.stack([
+            trsm(b[i], l[i], side=side, trans=trans,
+                 linv=None if linv is None else linv[i])
+            for i in range(b.shape[0])])
     if not card and linv is None:
         if b.dim() == 3:
             return _ref.trsm_batched_ref(b, l, side=side, trans=trans)
@@ -202,7 +215,15 @@ def syrk(c, a, scale=1.0, beta=1.0, *, packed=False, out=None):
     """Lower triangle of ``beta c + scale a a^T``, ``c``'s strict upper
     triangle kept: ``syrk_leaf`` (k split across thread blocks) or, with
     ``packed``, ``syrk_packed`` (one pass, any n). ``out`` may be ``c``
-    itself for an in-place update."""
+    itself for an in-place update. A stack, ``c`` (N, n, n) and ``a``
+    (N, n, k), is one call a matrix (``scale`` a float, a 0-d or an (N,)
+    tensor)."""
+    if c.dim() == 3:
+        dst = torch.empty_like(c) if out is None else out
+        for i in range(c.shape[0]):
+            syrk(c[i], a[i], _ref._per_matrix(scale, i), beta,
+                 packed=packed, out=dst[i])
+        return dst
     if _on_card(c, a, out, scale, beta):
         if not packed:
             LAUNCHES["syrk_leaf"] += 1

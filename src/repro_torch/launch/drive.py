@@ -7,7 +7,10 @@ mesh-mode serving and the tuner's distributed grid through
 :func:`run_cases`, which every rank runs; ``tests/test_torch_train.py``
 and ``chip_smoke.py``'s ``train_dp`` phase drive the int8 error-feedback
 all-reduce (``ef_allreduce``) and the reference's mini data-parallel
-trainer on it (``train_dp``) the same way. Each case builds its inputs on
+trainer on it (``train_dp``) the same way, and
+``tests/test_torch_mesh_serve.py`` and ``chip_smoke.py``'s
+``generate_mesh`` phase drive model serving under a ``data x model`` mesh
+(``mesh_serve``, ``moe_ep``) through :func:`run_mesh_cases`. Each case builds its inputs on
 the rank from a seed (:func:`spd_matrix`) or takes the caller's arrays,
 calls the port's entry points as a user would, and
 returns, on rank 0, what the caller checks: results, times and, per rank,
@@ -491,6 +494,230 @@ def train_dp(mesh, device, data, *, steps=600, lr=0.05, seed=0):
 CASES = {"gloo": gloo, "factor": factor, "solve": solve, "serve": serve,
          "engine_spmd": engine_spmd, "tune": tune, "imports": imports,
          "ef_allreduce": ef_allreduce, "train_dp": train_dp}
+
+
+# ---------------------------------------------------------------------------
+# model serving under a data x model mesh
+# ---------------------------------------------------------------------------
+def _model_cfg(arch, *, smoke, n_layers=None, dtype=None, over=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    if dtype is not None:
+        cfg = cfg.replace(param_dtype=dtype, activ_dtype=dtype)
+    return cfg.replace(**(over or {}))
+
+
+def _prompt(cfg, B, S, seed, device):
+    """A prompt batch drawn on the host from ``seed`` (every rank draws
+    the same)."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (B, S, cfg.n_codebooks) if cfg.family == "audio" else (B, S)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=g)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.n_img_tokens, cfg.d_model), generator=g)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _shards_match(tree, spec_of, mesh) -> int:
+    """How many DTensor leaves of ``tree`` hold a shard of the shape
+    their rule ``spec_of(path, leaf)`` gives; raises on one that does
+    not."""
+    from repro_torch.launch.sharding import local_shape
+    from repro_torch.optim.adamw import leaves
+    n = 0
+    for path, t in leaves(tree):
+        spec = spec_of(path, t)
+        want = local_shape(t.shape, spec, mesh)
+        if tuple(t.to_local().shape) != want:
+            raise AssertionError(f"{path}: shard {tuple(t.to_local().shape)}"
+                                 f", its rule {spec} gives {want}")
+        n += 1
+    return n
+
+
+def mesh_serve(mesh, device, data, *, arch, layout="tp", smoke=True,
+               n_layers=None, dtype=None, over=None, B=4, S=16,
+               n_tokens=3, params=None, seed=0, one_rank=True,
+               generate=True):
+    """One model served under ``mesh`` through the entry points a user
+    calls with the sharder: the parameters (the caller's reference pytree
+    ``data[params]``, else the port's ``init_params`` from ``seed``)
+    placed by ``param_spec``, a prompt [B, S] from ``seed + 1``, then
+    ``prefill_step``, ``n_tokens - 1`` greedy ``serve_step``s and, with
+    ``generate``, ``generate`` of ``n_tokens``. Rank 0 returns the
+    prompt, the prefill's and the first decode's logits (whole, numpy),
+    the greedy tokens, how many parameter and cache shards have their
+    rule's shape, and per rank the prefill and decode times, the peak
+    memory, the bytes by collective (``hostwire.WIRE``) and the kernel
+    launches of those calls (``ops``' counters, set to 0 before them);
+    with ``one_rank`` also the same calls unsharded on the rank
+    (``one_rank``) and ``teacher_forced``: the one-rank port's greedy
+    choice at each step, fed the mesh's tokens, is the mesh's next
+    token."""
+    from repro_torch import convert
+    from repro_torch.launch import hostwire
+    from repro_torch.launch.sharding import (cache_spec, make_sharder,
+                                             param_spec)
+    from repro_torch.models import transformer as T
+    from repro_torch import serve as E
+    cfg = _model_cfg(arch, smoke=smoke, n_layers=n_layers, dtype=dtype,
+                     over=over)
+    sh = make_sharder(mesh, multi_pod=False, batch=B, layout=layout)
+    if params is not None:
+        full = convert.model_params_from_reference(data[params], cfg,
+                                                   device)
+    else:
+        full = T.init_params(cfg, seed=seed, device=device)
+    batch = _prompt(cfg, B, S, seed + 1, device)
+    out = {"batch": {k: v.cpu().numpy() for k, v in batch.items()}}
+    with torch.no_grad():
+        pp = convert.place_params(full, cfg, mesh, layout=layout)
+        if not one_rank:
+            del full
+        pb = convert.place_batch(batch, sh)
+        out["param_shards"] = _shards_match(
+            pp, lambda p, t: param_spec(p, t, cfg, mesh, layout), mesh)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        hostwire.reset_wire()
+        _sync(device)
+        t0 = time.perf_counter()
+        last, caches = E.prefill_step(pp, pb, cfg, sh)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        flash = ops.LAUNCHES["flash_attention"]
+        wire_prefill = copy.deepcopy(hostwire.WIRE)
+        hostwire.reset_wire()
+        caches = convert.place_caches(T.pad_caches(caches, S + n_tokens),
+                                      cfg, sh)
+        out["cache_shards"] = _shards_match(
+            caches, lambda p, t: cache_spec(p, t, cfg, sh, mesh), mesh)
+        tok = E.pick(last, cfg, sharder=sh)
+        toks, decode_s = [tok], []
+        out["prefill_logits"] = _full(last).float().cpu().numpy()
+        for i in range(1, n_tokens):
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, caches = E.serve_step(pp, caches, toks[-1], S + i - 1,
+                                          cfg, sh)
+            toks.append(E.pick(logits, cfg, sharder=sh))
+            _sync(device)
+            decode_s.append(time.perf_counter() - t0)
+            if i == 1:
+                out["decode_logits"] = _full(logits).float().cpu().numpy()
+        wire_decode = copy.deepcopy(hostwire.WIRE)
+        greedy = _full(torch.cat(toks, dim=1))
+        out["greedy"] = greedy.cpu().numpy()
+        out["decode_token"] = out["greedy"][:, :1]
+        if generate:
+            gen = _full(E.generate(pp, pb, cfg, n_tokens=n_tokens,
+                                   sharder=sh))
+            out["generated"] = gen.cpu().numpy()
+        r = {"prefill_s": prefill_s, "decode_s": decode_s,
+             "flash_launches_prefill": flash,
+             "wire_prefill": wire_prefill, "wire_decode": wire_decode,
+             "counters": _counters(),
+             "flash_routes": dict(ops.FLASH_ROUTES)}
+        if device.type == "cuda":
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["ranks"] = _per_rank(r)
+        del pp, caches
+        if one_rank:
+            l1, c1 = E.prefill_step(full, batch, cfg)
+            c1 = T.pad_caches(c1, S + n_tokens)
+            agree = bool(torch.equal(E.pick(l1, cfg), greedy[:, :1]))
+            one = {"prefill_logits": l1.float().cpu().numpy()}
+            for i in range(1, n_tokens):
+                d1, c1 = E.serve_step(full, c1, greedy[:, i - 1:i],
+                                      S + i - 1, cfg)
+                if i == 1:
+                    one["decode_logits"] = d1.float().cpu().numpy()
+                agree &= bool(torch.equal(E.pick(d1, cfg),
+                                          greedy[:, i:i + 1]))
+            out["teacher_forced"] = agree
+            if generate:
+                one["generated"] = E.generate(full, batch, cfg,
+                                              n_tokens=n_tokens).cpu().numpy()
+            out["one_rank"] = one
+    return out if dist.get_rank() == 0 else None
+
+
+def moe_ep(mesh, device, data, *, cfg, params="moe_params", x="moe_x",
+           seed=None, x_shape=None, capacity_factors=(None, 1.0)):
+    """The expert-parallel MoE (``moe.moe_ffn`` under the mesh's sharder,
+    EP over ``model``) on the caller's parameters and input, or, with
+    ``seed``, on ``moe.moe_params`` and an input of ``x_shape`` drawn
+    from a generator on ``device`` seeded with it: for each capacity
+    factor (None: the config's), rank 0 returns the routed output (the
+    block's output less the shared experts', whole, numpy), whether every
+    value is finite, and the aux, and the port's dense oracle."""
+    import torch.nn.functional as F
+    from repro_torch import convert
+    from repro_torch.launch.sharding import make_sharder, param_spec
+    from repro_torch.models import moe
+    from repro_torch.models.common import ModelConfig, matmul
+    base = ModelConfig(**cfg)
+    if seed is None:
+        p = {k: (convert._tensor(v, device) if not isinstance(v, dict) else
+                 {n: convert._tensor(a, device) for n, a in v.items()})
+             for k, v in data[params].items()}
+        xs = torch.as_tensor(data[x], device=device)
+    else:
+        g = torch.Generator(device=device).manual_seed(seed)
+        p = moe.moe_params(base, generator=g, device=device)
+        xs = torch.randn(x_shape, generator=g, device=device).to(base.adt)
+    sh = make_sharder(mesh, multi_pod=False, batch=xs.shape[0])
+    res = []
+    with torch.no_grad():
+        dense = moe.moe_ffn_dense_reference(xs, p, base)
+        sp = p["shared"]
+        shared = matmul(F.silu(matmul(xs, sp["w_gate"])) * matmul(
+            xs, sp["w_in"]), sp["w_out"])
+        pp = convert._tree_placed(
+            p, lambda path, t: param_spec(f"layers/0/moe/{path}", t, base,
+                                          mesh), mesh)
+        xd = convert.place_batch({"x": xs}, sh)["x"]
+        for cf in capacity_factors:
+            c = base if cf is None else base.replace(moe_capacity_factor=cf)
+            routed, aux = moe.moe_ffn(xd, pp, c, sh)
+            got = _full(routed) - shared
+            res.append({"capacity_factor": c.moe_capacity_factor,
+                        "routed": got.float().cpu().numpy(),
+                        "finite": bool(torch.isfinite(got).all()),
+                        "aux": float(aux)})
+    return ({"cases": res, "dense": dense.float().cpu().numpy()}
+            if dist.get_rank() == 0 else None)
+
+
+MESH_CASES = {"mesh_serve": mesh_serve, "moe_ep": moe_ep}
+
+
+def run_mesh_cases(cases, device="cuda", data=None, mesh_shape=(2, 2)):
+    """Every rank's target for the model mesh: each ``{"kind": name,
+    **arguments}`` of ``cases`` in order on ``make_host_mesh(*mesh_shape)``
+    (``data x model``). Returns the cases' results on rank 0, None
+    elsewhere."""
+    from repro_torch.launch.mesh import make_host_mesh
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_host_mesh(*mesh_shape, device_type=device.type)
+    out = []
+    for case in cases:
+        case = dict(case)
+        out.append(MESH_CASES[case.pop("kind")](mesh, device, data or {},
+                                                **case))
+    return out if dist.get_rank() == 0 else None
 
 
 def run_cases(cases, device="cuda", data=None) -> list | None:

@@ -10,6 +10,12 @@ rendezvous on 127.0.0.1), and gives back what each rank returned. The CPU
 tests and ``chip_smoke.py`` both use it; on a machine with fewer cards
 than ranks, several ranks share a card.
 
+:func:`make_host_mesh` and :func:`make_production_mesh` are the
+reference's model meshes over the ranks of the group; both route the
+DTensor collectives through :mod:`repro_torch.launch.hostwire` (gloo).
+:class:`AbstractMesh` carries a mesh's axis names and sizes without any
+rank, for the sharding rules (``jax.sharding.AbstractMesh``).
+
 Nothing here touches a process group or a device when it is imported.
 """
 from __future__ import annotations
@@ -37,6 +43,49 @@ def make_mesh(shape, axes, device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
+
+
+class AbstractMesh:
+    """A mesh's ``shape`` (axis name -> size) and ``axis_names``, without
+    devices: the sharding rules' input where no group of that size runs."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, shape))
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+def _model_mesh(shape, axes, device_type):
+    need = 1
+    for s in shape:
+        need *= s
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh "
+                           f"{tuple(axes)} needs a group of {need} ranks, "
+                           f"this one has {have}")
+    from repro_torch.launch import hostwire
+    hostwire.install()
+    return make_mesh(shape, axes, device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """(16, 16) data x model, or (2, 16, 16) pod x data x model with
+    ``multi_pod``: 256 / 512 ranks. Raises, naming the size it needs, in
+    a group of any other size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _model_mesh(shape, axes, device_type)
+
+
+def make_host_mesh(data: int = 4, model: int = 2, *,
+                   device_type: str = "cuda"):
+    """A ``data x model`` mesh over the ranks that :func:`launch` started
+    (the CPU tests' 4 ranks, or ranks sharing one card)."""
+    return _model_mesh((data, model), ("data", "model"), device_type)
 
 
 def axis_size(mesh, axis: str) -> int:

@@ -18,16 +18,32 @@ reference's checkpointed scan. The reference has no backward kernel, so
 none is written here.
 
 Query head ``h`` reads kv head ``h // G`` (``h = kv * G + g``), so
-repeated keys and values are never materialized. No ``sharder`` argument:
-the model's mesh path (DTensor) is ROADMAP A3.
+repeated keys and values are never materialized on one device.
+
+Under a mesh (a :class:`~repro_torch.models.common.Sharder`) the
+projections are DTensor products and ``q`` goes through ``act_heads``;
+RoPE, the kernel and the cache run on each rank's shard
+(:func:`_attention_sharded`), which holds whole heads: the batch over the batch axes,
+the query heads over ``model`` where they divide it, else replicated.
+Keys and values shard their heads with the queries where the KV heads
+divide ``model`` (each rank's query heads then read its own KV heads);
+otherwise they are replicated over ``model`` (gemma-2b's one KV head,
+whose ``wk``/``wv`` shard the head dim: the boundary gathers it) and a
+rank whose query heads are a slice takes each one's KV head
+(``h // G``), as multi-head attention. A decode writes the new key and
+value into the rank's shard of the cache (placed by
+``launch.sharding.cache_spec``: KV heads, else head dim, over ``model``)
+and, where the cache does not shard whole heads, attends to the layer's
+cache gathered over ``model``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import (ModelConfig, _init, apply_rope,
-                                       matmul, rope_freqs)
+from repro_torch.models.common import (NO_SHARD, ModelConfig, Sharder,
+                                       _init, apply_rope, matmul,
+                                       rope_freqs)
 
 NEG_INF = -1e30
 
@@ -114,7 +130,50 @@ def _decode_attn(q, k_cache, v_cache, *, pos):
     return out.to(q.dtype)
 
 
-def attention(x, p, cfg: ModelConfig, *, pos=None, cache=None, chunk=1024):
+def rope_positions(S, pos, device):
+    """The positions a call rotates: 0..S-1, or ``pos`` in decode."""
+    if pos is None:
+        return torch.arange(S, device=device)
+    return torch.full((S,), int(pos), device=device)
+
+
+def _rope_qk(q, k, cfg: ModelConfig, pos):
+    """q [B, S, H, hd] and k [B, S, KV, hd] rotated at their positions."""
+    cos, sin = rope_freqs(rope_positions(q.shape[1], pos, q.device),
+                          q.shape[-1], cfg.rope_theta)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def _prefill_core(q, k, v, *, chunk, kv_heads):
+    """Causal attention of one device's q [B, S, Hq, hd] over k/v [B, T,
+    KV', hd] (the kernel). ``kv_heads`` (a LongTensor of Hq entries, or
+    None) picks each query head's KV head where q holds a slice of the
+    heads and k/v all of them."""
+    T = k.shape[1]
+    blk = min(chunk, T)
+    if T % blk:
+        raise ValueError(f"attention: sequence {T} is no multiple of "
+                         f"the chunk {blk}")
+    if kv_heads is not None:
+        k = k[:, :, kv_heads].contiguous()
+        v = v[:, :, kv_heads].contiguous()
+    return FlashCausal.apply(q, k, v, blk)
+
+
+def _decode_core(q, k_cache, v_cache, *, pos, kv_heads):
+    """:func:`_decode_attn` of q [B, S, Hq, hd] -> [B, S, Hq, hd];
+    ``kv_heads`` as in :func:`_prefill_core`."""
+    B, S, Hq, hd = q.shape
+    if kv_heads is not None:
+        k_cache, v_cache = k_cache[:, :, kv_heads], v_cache[:, :, kv_heads]
+    KV = k_cache.shape[2]
+    return _decode_attn(q.reshape(B, S, KV, Hq // KV, hd), k_cache,
+                        v_cache, pos=pos).reshape(B, S, Hq, hd)
+
+
+def attention(x, p, cfg: ModelConfig, sharder: Sharder = NO_SHARD, *,
+              pos=None, cache=None, chunk=1024):
     """Self-attention. Modes:
       train/prefill : pos=None — full causal over x; returns (out, kv)
       decode        : pos = int position; cache = {'k', 'v'} [B, Smax, KV,
@@ -124,37 +183,69 @@ def attention(x, p, cfg: ModelConfig, *, pos=None, cache=None, chunk=1024):
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    G = H // KV
-    q = matmul(x, p["wq"]).reshape(B, S, H, hd)
+    q = sharder.act_heads(matmul(x, p["wq"]).reshape(B, S, H, hd))
     k = matmul(x, p["wk"]).reshape(B, S, KV, hd)
     v = matmul(x, p["wv"]).reshape(B, S, KV, hd)
-
-    if pos is None:
-        positions = torch.arange(S, device=x.device)
+    if sharder.enabled:
+        out, kv = _attention_sharded(q, k, v, cfg, sharder, pos=pos,
+                                     cache=cache, chunk=chunk)
     else:
-        positions = torch.full((S,), int(pos), device=x.device)
-    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        q, k = _rope_qk(q, k, cfg, pos)
+        if pos is None:
+            out = _prefill_core(q, k, v, chunk=chunk, kv_heads=None)
+            kv = {"k": k, "v": v}
+        else:
+            kv = cache
+            kv["k"][:, pos:pos + S] = k.to(kv["k"].dtype)
+            kv["v"][:, pos:pos + S] = v.to(kv["v"].dtype)
+            out = _decode_core(q, kv["k"], kv["v"], pos=pos, kv_heads=None)
+    return matmul(out.reshape(B, S, H * hd), p["wo"]), kv
 
+
+def _attention_sharded(q, k, v, cfg: ModelConfig, sharder: Sharder, *,
+                       pos, cache, chunk):
+    """RoPE and the attention on each rank's whole heads (module
+    docstring); returns (out [B, S, H, hd], kv) as DTensors."""
+    H, KV = cfg.n_heads, cfg.n_kv
+    m, b = sharder.model_axis, sharder.b
+    q_heads = sharder._fits(H)
+    kv_shard = q_heads and sharder._fits(KV)
+    q_spec = (b, None, m if q_heads else None, None)
+    kv_spec = (b, None, m if kv_shard else None, None)
+    ql = sharder.local(q, q_spec)
+    kl, vl = sharder.local(k, kv_spec), sharder.local(v, kv_spec)
+    kv_heads = None
+    if q_heads and not kv_shard:
+        h0 = sharder.rank(m) * ql.shape[2]
+        kv_heads = torch.div(torch.arange(h0, h0 + ql.shape[2],
+                                          device=ql.device), H // KV,
+                             rounding_mode="floor")
+    ql, kl = _rope_qk(ql, kl, cfg, pos)
     if pos is None:
-        T = k.shape[1]
-        blk = min(chunk, T)
-        if T % blk:
-            raise ValueError(f"attention: sequence {T} is no multiple of "
-                             f"the chunk {blk}")
-        out = FlashCausal.apply(q, k, v, blk)
-        kv = {"k": k, "v": v}
-    else:
-        k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, pos:pos + S] = k.to(k_cache.dtype)
-        v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
-        out = _decode_attn(q.reshape(B, S, KV, G, hd), k_cache, v_cache,
-                           pos=pos)
-        kv = {"k": k_cache, "v": v_cache}
-    out = out.reshape(B, S, H * hd)
-    return matmul(out, p["wo"]), kv
+        out = _prefill_core(ql, kl, vl, chunk=chunk, kv_heads=kv_heads)
+        kv = {"k": sharder.wrap(kl, kv_spec), "v": sharder.wrap(vl, kv_spec)}
+        return sharder.wrap(out, q_spec), kv
+    # decode: the new key and value go into this rank's cache shard
+    c_spec = cache_layer_spec("k", cache["k"], sharder)
+    S = ql.shape[1]
+    for name, new in (("k", kl), ("v", vl)):
+        dst = cache[name].to_local()
+        dst[:, pos:pos + S] = sharder.local(sharder.wrap(new, kv_spec),
+                                            c_spec).to(dst.dtype)
+    kc, vc = (cache[n].to_local() if c_spec == kv_spec
+              else sharder.local(cache[n], kv_spec) for n in ("k", "v"))
+    out = _decode_core(ql, kc, vc, pos=pos, kv_heads=kv_heads)
+    return sharder.wrap(out, q_spec), cache
+
+
+def cache_layer_spec(key: str, leaf, sharder: Sharder) -> tuple:
+    """The spec of one layer's view of a cache leaf: ``cache_spec`` of
+    the stacked leaf, without its layers entry (None without a mesh)."""
+    if not sharder.enabled:
+        return None
+    from repro_torch.launch.sharding import cache_spec
+    return cache_spec(key, (1,) + tuple(leaf.shape), None, sharder,
+                      sharder.mesh)[1:]
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, length: int, dtype=None,

@@ -1,13 +1,17 @@
-"""Shared model machinery, in torch: config, norms, MLPs, RoPE, init.
+"""Shared model machinery, in torch: config, sharding helper, norms,
+MLPs, RoPE, init.
 
-Counterpart of ``repro/models/common.py``. The reference's ``Sharder`` /
-``NO_SHARD`` (GSPMD sharding constraints under a mesh) are left out, and
-so none of the functions here takes a ``sharder`` argument: their mesh
-counterpart (model weights and activations as DTensors, for each family
-served: dense, vlm, audio, moe, rwkv, hybrid) is ROADMAP A3; the
-distributed solver
-(A9, ``core/distributed.py``) shards no model.
-``cross_entropy`` is the training loss (``transformer.loss_fn``).
+Counterpart of ``repro/models/common.py``. :class:`Sharder` is the
+reference's: the identity without a mesh (``NO_SHARD``), and under a mesh
+(``launch.sharding.make_sharder``) each ``act_*`` method redistributes a
+``DTensor`` to the reference's spec, the counterpart of
+``with_sharding_constraint``. Under a mesh the model's parameters and
+activations are DTensors (``convert.place_params``) and torch's DTensor
+propagation plays GSPMD's part; what DTensor cannot propagate, and every
+hand-written kernel, runs on each rank's shard between
+:meth:`Sharder.local` and :meth:`Sharder.wrap` (the counterpart of
+``shard_map``). ``cross_entropy`` is the training loss
+(``transformer.loss_fn``).
 
 Each function repeats the reference's casts in the reference's order:
 ``rms_norm`` takes its statistics in f32 and normalizes in ``x.dtype``,
@@ -19,6 +23,7 @@ GELU here is ``F.gelu(x, approximate="tanh")``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +91,108 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class Sharder:
+    """Redistributes DTensors to the reference's specs when a mesh is
+    active.
+
+    Logical axes: 'batch' -> (pod, data), 'seq'/'ffn'/'heads'/'vocab' ->
+    model. Without a mesh (``enabled`` False) every method is the
+    identity, so the models run unmodified on one device. A spec is a
+    tuple with an entry per dimension (``launch.sharding``)."""
+    enabled: bool = False
+    batch_axes: Any = ("data",)   # ('pod','data') on the multi-pod mesh
+    model_axis: str | None = "model"
+    fsdp_axis: str | None = "data"   # parameter (ZeRO-3) sharding axis
+    mesh: Any = None                 # the DeviceMesh
+
+    @property
+    def b(self):
+        """The batch axes as a spec entry."""
+        axes = tuple(self.batch_axes)
+        if not axes:
+            return None
+        return axes[0] if len(axes) == 1 else axes
+
+    def c(self, x, spec):
+        """``x`` redistributed to ``spec`` (the identity without a
+        mesh)."""
+        if not self.enabled:
+            return x
+        from torch.distributed.tensor import DTensor
+        from repro_torch.launch.sharding import placements
+        if not isinstance(x, DTensor):
+            raise TypeError("under a mesh the model runs on DTensors "
+                            f"(convert.place_params), got {type(x)}")
+        want = placements(spec, self.mesh)
+        if tuple(x.placements) == tuple(want):
+            return x
+        return x.redistribute(self.mesh, want)
+
+    def local(self, x, spec):
+        """This rank's shard of ``x`` redistributed to ``spec`` (``x``
+        itself without a mesh): the way into a local-map boundary."""
+        if not self.enabled:
+            return x
+        return self.c(x, spec).to_local()
+
+    def wrap(self, local, spec):
+        """A DTensor of this rank's shard ``local`` placed by ``spec``
+        (``local`` itself without a mesh): the way out of a boundary.
+        Every sharded dimension is even."""
+        if not self.enabled:
+            return local
+        from torch.distributed.tensor import DTensor
+        from repro_torch.launch.sharding import placements
+        return DTensor.from_local(local, self.mesh,
+                                  placements(spec, self.mesh),
+                                  run_check=False)
+
+    def rank(self, axis) -> int:
+        """This rank's index on mesh axis ``axis`` (0 without a mesh)."""
+        if not self.enabled or axis is None:
+            return 0
+        return self.mesh.get_local_rank(axis)
+
+    def _msize(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        from repro_torch.launch.sharding import mesh_shape
+        return mesh_shape(self.mesh)[self.model_axis]
+
+    def _fits(self, dim: int) -> bool:
+        m = self._msize()
+        return m > 1 and dim % m == 0
+
+    # activation specs (divisibility-aware: a dim that doesn't divide the
+    # model axis stays replicated: gemma's 8 heads on a 16-way TP axis,
+    # decode's seq=1, etc.)
+    def act_bsd(self, x):        # [batch, seq, d_model], seq-sharded (SP)
+        seq = self.model_axis if self._fits(x.shape[1]) else None
+        return self.c(x, (self.b, seq, None))
+
+    def act_full(self, x):       # [batch, seq, d_model], replicated d/seq
+        return self.c(x, (self.b, None, None))
+
+    def act_heads(self, x):      # [batch, seq, heads, hd], TP over heads
+        if self._fits(x.shape[2]):
+            return self.c(x, (self.b, None, self.model_axis, None))
+        if self._fits(x.shape[3]):
+            return self.c(x, (self.b, None, None, self.model_axis))
+        return self.c(x, (self.b, None, None, None))
+
+    def act_ffn(self, x):        # [batch, seq, d_ff], TP over ffn
+        f = self.model_axis if self._fits(x.shape[2]) else None
+        return self.c(x, (self.b, None, f))
+
+    def logits(self, x):         # [batch, seq, vocab], TP over vocab
+        v = self.model_axis if self._fits(x.shape[-1]) else None
+        return self.c(x, (self.b, *(None,) * (x.ndim - 2), v))
+
+
+NO_SHARD = Sharder(enabled=False)
+
+
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
@@ -125,7 +232,8 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(x, w_in, w_gate, w_out, kind: str):
+def mlp_apply(x, w_in, w_gate, w_out, kind: str,
+              sharder: Sharder = NO_SHARD):
     """Gated / plain MLP. w_gate is None for non-gated kinds."""
     h = matmul(x, w_in)
     if kind in ("swiglu", "geglu"):
@@ -138,6 +246,7 @@ def mlp_apply(x, w_in, w_gate, w_out, kind: str):
         h = _gelu(h)
     else:
         raise ValueError(kind)
+    h = sharder.act_ffn(h)
     return matmul(h, w_out)
 
 

@@ -1,12 +1,21 @@
 """Mixture-of-Experts FFN (DeepSeek style: shared + routed, top-k), in
 torch.
 
-Counterpart of ``repro/models/moe.py`` at one expert shard (``ep = 1``;
-the reference's ``shard_map`` over a mesh is ROADMAP A3). The router
+Counterpart of ``repro/models/moe.py``. Expert parallelism: under a mesh
+the experts are sharded over the ``model`` axis (``ep`` shards of
+``E / ep`` experts) and each (data, model) rank routes its LOCAL tokens
+(:func:`moe_local` with ``ep`` and ``my``, the rank's index on ``model``,
+between ``Sharder.local`` and ``Sharder.wrap``: the reference's
+``shard_map``), keeps the assignments that hit its own experts, and the
+partial outputs are summed over ``model`` in rank order (0, 1, ...,
+``ep - 1``: gathered, then added one at a time); the aux is averaged over
+every mesh axis. Without a mesh ``ep = 1``. The router
 runs in f32: softmax, top-k, gates renormalised over the k. The T * K
-assignments are sorted by expert with a STABLE sort (as ``jnp.argsort``),
-the first ``cap`` kept (``cap = int(T K * capacity_factor)``, at most
-T K: at a factor >= 1 nothing drops), and each expert's contiguous rows
+assignments are sorted by local expert with a STABLE sort (as
+``jnp.argsort``), the assignments of other ranks' experts last, the
+first ``cap`` kept (``cap = int(ceil(T K / ep) * capacity_factor)``,
+at most T K: at a factor >= 1 and ep = 1 nothing drops), and each
+expert's contiguous rows
 go through its SwiGLU FFN, the counterpart of ``jax.lax.ragged_dot``:
 the counts come to the host once per layer, then one product per
 non-empty expert and weight (the loop runs under the profiler range
@@ -24,7 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, _init, matmul
+from repro_torch.models.common import (NO_SHARD, ModelConfig, Sharder,
+                                       _init, matmul)
 
 
 def moe_params(cfg: ModelConfig, *, generator, device):
@@ -52,9 +62,9 @@ def route(xf, router_w, k):
     return probs, gate, idx
 
 
-def capacity(T: int, K: int, factor: float) -> int:
-    """The reference's static capacity at ep = 1."""
-    return max(min(int(T * K * factor), T * K), 1)
+def capacity(T: int, K: int, factor: float, ep: int = 1) -> int:
+    """The reference's static capacity of one of ``ep`` expert shards."""
+    return max(min(int(-(-T * K // ep) * factor), T * K), 1)
 
 
 def _expert_ffn(rows, w_in, w_gate, w_out, counts):
@@ -75,24 +85,30 @@ def _expert_ffn(rows, w_in, w_gate, w_out, counts):
     return out
 
 
-def moe_local(x, router_w, w_in, w_gate, w_out, *, cfg: ModelConfig):
-    """The routed experts on x [B, S, D]: (out [B, S, D] in x's dtype,
-    aux f32 scalar, the routing ``{"idx": [T, K] experts, "kept": the
-    flat indices t * K + k of the kept assignments, sorted by expert}``).
-    The reference's ``_moe_local`` at ep = 1."""
+def moe_local(x, router_w, w_in, w_gate, w_out, *, cfg: ModelConfig,
+              ep: int = 1, my: int = 0):
+    """The routed experts on x [B, S, D] with the expert shard ``my`` of
+    ``ep`` (``w_*`` its ``E / ep`` experts): (out [B, S, D] in x's dtype,
+    the shard's PARTIAL output where ep > 1, aux f32 scalar, the routing
+    ``{"idx": [T, K] experts, "kept": the flat indices t * K + k of the
+    kept assignments, sorted by local expert, other shards' last}``).
+    The reference's ``_moe_local``."""
     B, S, D = x.shape
     T, K, E = B * S, cfg.moe_topk, cfg.moe_experts
+    e_loc = E // ep
     dev = x.device
     xf = x.reshape(T, D)
     probs, gate, idx = route(xf, router_w, K)
 
     flat_e = idx.reshape(T * K)
-    order = torch.argsort(flat_e, stable=True)
-    cap = capacity(T, K, cfg.moe_capacity_factor)
+    local = torch.div(flat_e, e_loc, rounding_mode="floor") == my
+    key = torch.where(local, flat_e % e_loc, e_loc)      # non-local last
+    order = torch.argsort(key, stable=True)
+    cap = capacity(T, K, cfg.moe_capacity_factor, ep)
     sel = order[:cap]
-    sel_e = flat_e[sel]                                  # ascending
+    sel_key = key[sel]                                   # ascending
     rows = xf[sel // K]                                  # [cap, D]
-    counts = torch.bincount(sel_e, minlength=E)
+    counts = torch.bincount(sel_key, minlength=e_loc + 1)[:e_loc]
     out_rows = _expert_ffn(rows, w_in, w_gate, w_out, counts)
     weighted = out_rows * gate.reshape(T * K)[sel][:, None].to(
         out_rows.dtype)
@@ -115,18 +131,48 @@ def moe_local(x, router_w, w_in, w_gate, w_out, *, cfg: ModelConfig):
                                                    "kept": sel}
 
 
-def moe_ffn(x, p, cfg: ModelConfig):
+def moe_ffn(x, p, cfg: ModelConfig, sharder: Sharder = NO_SHARD):
     """The MoE block: routed experts plus the shared experts' dense
     SwiGLU. Returns (out, aux)."""
-    routed, aux, _ = moe_local(x, p["router"], p["w_in"], p["w_gate"],
-                               p["w_out"], cfg=cfg)
+    if sharder.enabled:
+        routed, aux = _moe_sharded(x, p, cfg, sharder)
+    else:
+        routed, aux, _ = moe_local(x, p["router"], p["w_in"], p["w_gate"],
+                                   p["w_out"], cfg=cfg)
     if cfg.moe_shared:
         sp = p["shared"]
         h = matmul(x, sp["w_in"])
         g = matmul(x, sp["w_gate"])
-        h = F.silu(g).to(h.dtype) * h
+        h = sharder.act_ffn(F.silu(g).to(h.dtype) * h)
         routed = routed + matmul(h, sp["w_out"])
     return routed, aux
+
+
+def _moe_sharded(x, p, cfg: ModelConfig, sharder: Sharder):
+    """Expert parallelism over ``model`` (module docstring): x at
+    (batch, None, None), the router replicated, the experts gathered to
+    (model, None, None), as the reference's ``shard_map`` takes them."""
+    from repro_torch.launch.sharding import axis_names
+    m, b = sharder.model_axis, sharder.b
+    if m is None:
+        raise ValueError("the MoE's expert parallelism needs a model axis "
+                         "(layout 'tp')")
+    ep = sharder._msize()
+    x_spec = (b, None, None)
+    w = [sharder.local(p[n], (m, None, None))
+         for n in ("w_in", "w_gate", "w_out")]
+    out, aux, _ = moe_local(sharder.local(x, x_spec),
+                            sharder.local(p["router"], (None, None)), *w,
+                            cfg=cfg, ep=ep, my=sharder.rank(m))
+    # the partial outputs, gathered over model and added in rank order
+    parts = sharder.local(sharder.wrap(out[None], (m, b, None, None)),
+                          (None, b, None, None))
+    routed = parts[0]
+    for i in range(1, ep):
+        routed = routed + parts[i]
+    every = sharder.local(sharder.wrap(aux.reshape(1),
+                                       (axis_names(sharder.mesh),)), (None,))
+    return sharder.wrap(routed, x_spec), every.mean()
 
 
 def moe_ffn_dense_reference(x, p, cfg: ModelConfig):

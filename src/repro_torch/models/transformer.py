@@ -43,6 +43,13 @@ moe with dense layers ``{"dense": ..., "main": ...}``; rwkv's
 ``{"s", "x_tm", "x_cm"}`` leaves ``[L, B, ...]`` (no sequence axis); the
 hybrid's ``{"mamba": {"ssm", "conv"}, "attn": {"k", "v"}}``, the mamba
 leaves ``[L, B, ...]`` and the attention ones ``[n_apps, B, S, KV, hd]``.
+
+Under a mesh (``sharder`` from ``launch.sharding.make_sharder``) the
+parameters, batch and caches are DTensors (``convert.place_params``,
+``place_batch``, ``place_caches``) and each block keeps the reference's
+sequence-parallel discipline (``_tf_block``'s ``pin``). The dense, vlm,
+audio and moe families run under a mesh; rwkv and hybrid raise there
+(ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -54,9 +61,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mla, moe, rwkv6
-from repro_torch.models.common import (ModelConfig, _init, cross_entropy,
-                                       matmul, mlp_apply, mlp_params,
-                                       rms_norm)
+from repro_torch.models.common import (NO_SHARD, ModelConfig, Sharder,
+                                       _init, cross_entropy, matmul,
+                                       mlp_apply, mlp_params, rms_norm)
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "rwkv", "hybrid")
 AUX_LOSS_W = 0.01
@@ -132,41 +139,60 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _tf_block(x, p, cfg: ModelConfig, *, use_moe: bool, pos=None,
-              cache=None):
-    """Returns (x, kv_or_cache, aux); aux is None without experts."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+def _tf_block(x, p, cfg: ModelConfig, sharder: Sharder = NO_SHARD, *,
+              use_moe: bool, pos=None, cache=None):
+    """Returns (x, kv_or_cache, aux); aux is None without experts.
+
+    Sequence-parallel discipline (the reference's): the residual stream
+    is seq-sharded, the norms run in the sharded domain, and where the
+    heads divide the model axis (``pin``) the gather is pinned to the
+    norm's output (``act_full(act_bsd(h))``) and each branch output is
+    constrained seq-sharded before its residual add."""
+    pin = sharder._fits(cfg.n_heads) if cfg.n_heads else False
+
+    def norm_then_gather(x, gamma):
+        h = rms_norm(x, gamma, cfg.norm_eps)
+        if not pin:
+            return h
+        return sharder.act_full(sharder.act_bsd(h))
+
+    h = norm_then_gather(x, p["ln1"])
     attn_fn = mla.mla_attention if cfg.mla else attn.attention
-    a, kv = attn_fn(h, p["attn"], cfg, pos=pos, cache=cache)
-    x = x + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    a, kv = attn_fn(h, p["attn"], cfg, sharder, pos=pos, cache=cache)
+    x = x + (sharder.act_bsd(a) if pin else a)
+    h = norm_then_gather(x, p["ln2"])
     aux = None
     if use_moe:
-        f, aux = moe.moe_ffn(h, p["moe"], cfg)
+        f, aux = moe.moe_ffn(h, p["moe"], cfg, sharder)
     else:
         f = mlp_apply(h, p["mlp"]["w_in"], p["mlp"].get("w_gate"),
-                      p["mlp"]["w_out"], cfg.mlp)
-    return x + f, kv, aux
+                      p["mlp"]["w_out"], cfg.mlp, sharder)
+    x = (x + sharder.act_bsd(f)) if pin else sharder.act_bsd(x + f)
+    return x, kv, aux
 
 
 # ---------------------------------------------------------------------------
 # embedding / heads (the modality stubs)
 # ---------------------------------------------------------------------------
-def embed_inputs(params, batch, cfg: ModelConfig, *, decode: bool = False):
+def embed_inputs(params, batch, cfg: ModelConfig,
+                 sharder: Sharder = NO_SHARD, *, decode: bool = False):
     _check_family(cfg)
     dev = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     # F.embedding, not indexing: on the CPU the backward of an indexed
     # gather accumulates the rows of repeated tokens in a varying order,
     # embedding's backward always in the tokens' order
+    if sharder.enabled:
+        # the ids gathered (a few bytes), the table never: see _lookup
+        tokens = sharder.local(tokens, (None,) * tokens.ndim)
     if cfg.family == "audio":
         # 0 + e_0 + e_1 + ..., each add in the parameters' dtype
         emb = params["embed"]
-        x = F.embedding(tokens[..., 0], emb[0])
+        x = _lookup(tokens[..., 0], emb[0], sharder)
         for i in range(1, cfg.n_codebooks):
-            x = x + F.embedding(tokens[..., i], emb[i])
+            x = x + _lookup(tokens[..., i], emb[i], sharder)
     else:
-        x = F.embedding(tokens, params["embed"])
+        x = _lookup(tokens, params["embed"], sharder)
     if cfg.family == "vlm" and cfg.n_img_tokens and not decode:
         # patch embeddings, projected as JAX promotes (f32 embeddings and
         # bf16 weights multiply in f32), then cast to the embedding dtype
@@ -174,16 +200,46 @@ def embed_inputs(params, batch, cfg: ModelConfig, *, decode: bool = False):
         pe = matmul(pe, params["patch_proj"]).to(x.dtype)
         n = cfg.n_img_tokens
         x = torch.cat([pe[:, :n], x[:, n:]], dim=1)
-    return x.to(cfg.adt)
+    return sharder.act_bsd(x.to(cfg.adt))
 
 
-def lm_logits(params, x, cfg: ModelConfig):
+def _lookup(tokens, table, sharder: Sharder):
+    """``F.embedding(tokens, table)``. Under a mesh ``tokens`` is every
+    rank's whole [B, S] and ``table`` [V, D] a DTensor: each rank looks
+    up the rows of its own vocab range (other ids give zeros) and its own
+    columns, so the result is Partial over the axes that shard the vocab
+    and sharded on D over those that shard D; the next constraint reduces
+    it (one nonzero term an element: the sum is exact)."""
+    if not sharder.enabled:
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    local = table.to_local()
+    rows, out = local.shape[0], []
+    lo = 0
+    for i, pl in enumerate(table.placements):
+        if pl == Shard(0):
+            lo = lo * table.device_mesh.size(i) + table.device_mesh \
+                .get_local_rank(i)
+            out.append(Partial())
+        elif pl == Shard(1):
+            out.append(Shard(tokens.ndim))
+        else:
+            out.append(Replicate())
+    idx = tokens - lo * rows
+    ok = (idx >= 0) & (idx < rows)
+    x = F.embedding(torch.where(ok, idx, 0), local)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return DTensor.from_local(x, table.device_mesh, out, run_check=False)
+
+
+def lm_logits(params, x, cfg: ModelConfig, sharder: Sharder = NO_SHARD):
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     head = params["lm_head"]
     if cfg.family == "audio":
         dt = torch.promote_types(x.dtype, head.dtype)
         return torch.einsum("bsd,cdv->bscv", x.to(dt), head.to(dt)).float()
-    return matmul(x, head).float()
+    return sharder.logits(matmul(x, head)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +255,9 @@ def _layer_groups(params, cfg: ModelConfig):
     return groups
 
 
-def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
-            caches=None, pos=None, last_only: bool = False):
+def forward(params, batch, cfg: ModelConfig, sharder: Sharder = NO_SHARD,
+            *, mode: str = "train", caches=None, pos=None,
+            last_only: bool = False):
     """Returns (logits, aux_loss, new_caches).
 
     mode='train'  : caches/pos ignored; new_caches is None (rwkv: the
@@ -219,8 +276,11 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
+    if sharder.enabled and cfg.family in ("rwkv", "hybrid"):
+        raise NotImplementedError(f"the {cfg.family} family under a mesh "
+                                  "(ROADMAP A3)")
     decode = mode == "decode"
-    x = embed_inputs(params, batch, cfg, decode=decode)
+    x = embed_inputs(params, batch, cfg, sharder, decode=decode)
     if cfg.family == "rwkv":
         x, new_caches = _forward_rwkv(params, x, cfg, caches=caches,
                                       decode=decode, remat=_remat(mode, cfg))
@@ -228,15 +288,15 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         x, new_caches = _forward_hybrid(params, x, cfg, mode=mode,
                                         caches=caches, pos=pos)
     else:
-        return _forward_tf(params, x, cfg, mode=mode, caches=caches,
-                           pos=pos, last_only=last_only)
+        return _forward_tf(params, x, cfg, sharder, mode=mode,
+                           caches=caches, pos=pos, last_only=last_only)
     logits = lm_logits(params, x[:, -1:] if last_only else x, cfg)
     return logits, torch.zeros((), dtype=torch.float32,
                                device=x.device), new_caches
 
 
-def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
-                last_only):
+def _forward_tf(params, x, cfg: ModelConfig, sharder: Sharder, *, mode,
+                caches, pos, last_only):
     """The transformer families' layers and head (``forward``'s
     result)."""
     decode = mode == "decode"
@@ -252,7 +312,7 @@ def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
                 x, a = checkpoint(_train_block, x, p_l, cfg, use_moe,
                                   use_reentrant=False)
             else:
-                x, kv, a = _tf_block(x, p_l, cfg, use_moe=use_moe,
+                x, kv, a = _tf_block(x, p_l, cfg, sharder, use_moe=use_moe,
                                      pos=pos if decode else None,
                                      cache=_layer_states(group, i))
                 if mode == "prefill":
@@ -262,7 +322,7 @@ def _forward_tf(params, x, cfg: ModelConfig, *, mode, caches, pos,
         aux = aux + acc
         if mode == "prefill":
             new_caches[name] = _stacked(collected)
-    logits = lm_logits(params, x[:, -1:] if last_only else x, cfg)
+    logits = lm_logits(params, x[:, -1:] if last_only else x, cfg, sharder)
     if mode == "train":
         return logits, aux, None
     if decode:
@@ -371,19 +431,28 @@ def pad_caches(caches, to_len: int):
     """Grow prefill caches (length S) to a decode buffer of ``to_len``.
 
     Only sequence-indexed attention leaves (k/v/c/kr) with at least four
-    axes are padded, with zeros, along axis 2; others pass through.
+    axes are padded, with zeros, along axis 2; others pass through. A
+    DTensor leaf is padded shard by shard (no cache spec shards axis 2).
     """
     seq_leaves = {"k", "v", "c", "kr"}
+
+    def grow(leaf):
+        shape = list(leaf.shape)
+        shape[2] = to_len
+        out = leaf.new_zeros(shape)
+        out[:, :, :leaf.shape[2]] = leaf
+        return out
 
     def pad(key, leaf: Any):
         if isinstance(leaf, dict):
             return {k: pad(k, v) for k, v in leaf.items()}
         if key in seq_leaves and leaf.dim() >= 4 and leaf.shape[2] < to_len:
-            shape = list(leaf.shape)
-            shape[2] = to_len
-            out = leaf.new_zeros(shape)
-            out[:, :, :leaf.shape[2]] = leaf
-            return out
+            from torch.distributed.tensor import DTensor
+            if isinstance(leaf, DTensor):
+                return DTensor.from_local(grow(leaf.to_local()),
+                                          leaf.device_mesh, leaf.placements,
+                                          run_check=False)
+            return grow(leaf)
         return leaf
 
     return pad(None, caches)

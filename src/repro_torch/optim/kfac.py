@@ -119,19 +119,16 @@ def _damped(a, cfg: TreeNewtonConfig):
 
 def _refactor(a, cfg: TreeNewtonConfig):
     """Factors of the damped statistics ``a`` (..., n, n), all as one
-    batch. ``engine="auto"`` resolves against the tuning database of
-    ``a``'s device at the block size, among the engines that factor a
-    stack in batched launches: where it names the tree engine for blocks
-    larger than the leaf, which has no batched recursion yet (ROADMAP C),
-    the blocked engine factors them. Blocks of at most one leaf go to the
-    tree engine's base case (any ``n <= leaf``)."""
+    stack (the reference vmaps the engine's POTRF over them).
+    ``engine="auto"`` resolves against the tuning database of ``a``'s
+    device at the block size. Blocks that are not a multiple of the leaf
+    (small ``block`` configs) stay on the tree engine, whose base case
+    handles any ``n <= leaf`` without padding."""
     n = a.shape[-1]
     pcfg = cfg.precision
     if pcfg.engine == "auto":
         from repro_torch import tune  # local: avoid an import cycle
         pcfg = tune.resolve_cfg(pcfg, n, backend=a.device.type)
-        if pcfg.engine == "tree" and n > pcfg.leaf:
-            pcfg = dataclasses.replace(pcfg, engine="blocked")
     potrf = (blocked_potrf if pcfg.engine == "blocked"
              and n % pcfg.leaf == 0 else tree_potrf)
     flat = _damped(a, cfg).reshape(-1, n, n)

@@ -19,6 +19,13 @@ A ladder with ``engine="auto"`` is resolved per problem size against the
 tuning database (:mod:`repro_torch.tune`; ``tuning_db=`` injects one,
 else the packaged database of the engine's device type).
 
+Under a device mesh ``prefill_step``, ``serve_step`` and ``generate``
+take the ``sharder`` of ``launch.sharding.make_sharder`` (every rank calls
+them, SPMD): the parameters and the batch are DTensors
+(``convert.place_params`` / ``place_batch``), the prefill's caches are
+padded and placed by ``cache_spec`` (``convert.place_caches``), and the
+tokens come back as a DTensor of the batch's placement.
+
 Mesh mode (``SolverEngine(mesh=...)``) factors and solves large matrices
 on a ``torch.distributed`` mesh (:mod:`repro_torch.core.distributed`);
 :class:`SolverEngine` says how its ranks are driven.
@@ -44,54 +51,67 @@ from repro_torch.core.solve import (as_tensor, cholesky_padded,
                                     refine_solve, solve_factored)
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import NO_SHARD, ModelConfig, Sharder
 from repro_torch.serve.metrics import MetricsTracker, NullMetrics
 from repro_torch.serve.options import SolveOptions, resolve_options
 
 
-def prefill_step(params, batch, cfg: ModelConfig):
+def prefill_step(params, batch, cfg: ModelConfig,
+                 sharder: Sharder = NO_SHARD):
     """Full-sequence forward; returns (last_logits [B, V] f32 (audio:
     [B, C, V]), caches). ``batch`` holds ``tokens`` (and pixtral's
     ``patch_embeds``)."""
-    logits, _, caches = T.forward(params, batch, cfg, mode="prefill",
-                                  last_only=True)
+    logits, _, caches = T.forward(params, batch, cfg, sharder,
+                                  mode="prefill", last_only=True)
     return logits[:, -1], caches
 
 
-def serve_step(params, caches, tokens, pos, cfg: ModelConfig):
+def serve_step(params, caches, tokens, pos, cfg: ModelConfig,
+               sharder: Sharder = NO_SHARD):
     """One decode step. tokens: [B, 1] (audio: [B, 1, C]); pos: the
     absolute position (int). Returns (logits [B, V] (audio: [B, C, V]),
     caches), the caches updated in place."""
-    logits, _, caches = T.forward(params, {"tokens": tokens}, cfg,
+    logits, _, caches = T.forward(params, {"tokens": tokens}, cfg, sharder,
                                   mode="decode", caches=caches, pos=pos)
     return logits[:, 0], caches
 
 
 def generate(params, prompt_batch, cfg: ModelConfig, *, n_tokens: int,
-             temperature: float = 0.0, rng=None):
+             sharder: Sharder = NO_SHARD, temperature: float = 0.0,
+             rng=None):
     """Greedy (``temperature == 0``) or sampled generation: prefill the
     prompt batch (all of it: pixtral's ``patch_embeds`` too), then
     ``n_tokens - 1`` decode steps. Runs where the parameters lie. ``rng``
     is a ``torch.Generator`` on that device, needed for sampling. Returns
     the new tokens, [B, n_tokens] int64 (audio: [B, n_tokens, C])."""
     S = prompt_batch["tokens"].shape[1]
-    last, caches = prefill_step(params, prompt_batch, cfg)
+    last, caches = prefill_step(params, prompt_batch, cfg, sharder)
     caches = T.pad_caches(caches, S + n_tokens)
+    if sharder.enabled:
+        from repro_torch.convert import place_caches
+        caches = place_caches(caches, cfg, sharder)
     outs = []
-    tok = pick(last, cfg, temperature, rng)
+    tok = pick(last, cfg, temperature, rng, sharder)
     outs.append(tok)
     for i in range(1, n_tokens):
-        logits, caches = serve_step(params, caches, tok, S + i - 1, cfg)
-        tok = pick(logits, cfg, temperature, rng)
+        logits, caches = serve_step(params, caches, tok, S + i - 1, cfg,
+                                    sharder)
+        tok = pick(logits, cfg, temperature, rng, sharder)
         outs.append(tok)
     return torch.cat(outs, dim=1)
 
 
-def pick(logits, cfg: ModelConfig, temperature=0.0, rng=None):
+def pick(logits, cfg: ModelConfig, temperature=0.0, rng=None,
+         sharder: Sharder = NO_SHARD):
     """logits: [B, V] (audio: [B, C, V]) -> next token [B, 1] (audio:
     [B, 1, C]): argmax, or a draw from ``softmax(logits / temperature)``
     with ``rng`` (the reference folds the step index into its key; a
-    generator advances instead)."""
+    generator advances instead). Under a mesh each rank picks for its
+    batch shard, the vocab gathered first."""
+    if sharder.enabled:
+        spec = (sharder.b,) + (None,) * (logits.ndim - 1)
+        tok = pick(sharder.local(logits, spec), cfg, temperature, rng)
+        return sharder.wrap(tok, spec)
     if temperature > 0:
         if rng is None:
             raise ValueError("sampling (temperature > 0) needs rng")

@@ -990,8 +990,8 @@ def test_batched_wrappers_refuse_cpu_tensors():
 
 def test_ops_stacks_run_the_batched_plain_versions():
     """On the CPU, ops given a stack (3-D operands) runs the batched plain
-    version (bitwise) and counts no launch; the right trsm takes no
-    stack."""
+    version (bitwise) and counts no launch; the right trsm and syrk take a
+    stack one matrix at a time."""
     rng = np.random.default_rng(3)
     a = torch.from_numpy(_spd_stack(rng, 3, 128, [1.0, 1e3, 1e-3]))
     ops.reset_launches()
@@ -1005,8 +1005,11 @@ def test_ops_stacks_run_the_batched_plain_versions():
     for trans in (False, True):
         assert torch.equal(ops.trsm(x, l, side="left", trans=trans),
                            tref.trsm_batched_ref(x, l, trans=trans))
-    with pytest.raises(NotImplementedError):
-        ops.trsm(x.mT, l)
+    assert torch.equal(ops.trsm(x.mT, l),
+                       tref.trsm_batched_ref(x.mT, l, side="right",
+                                             trans=True))
+    assert torch.equal(ops.syrk(l, x, s, 1.0), torch.stack(
+        [tref.syrk_ref(l[i], x[i], scale=s[i]) for i in range(3)]))
     linv, a21, c, kw = _panel_case(("int8", "f32"), 2)
     stack = [torch.from_numpy(np.stack([v] * 2)) for v in (linv, a21, c)]
     want = tref.panel_update_batched_ref(*stack, **kw)

@@ -322,24 +322,35 @@ def test_refactor(jx, path):
     assert np.abs(rec - damped).max() / np.abs(damped).max() < 4e-2
 
 
-def test_refactor_engines_on_stacks(monkeypatch):
-    """The tree engine refuses a stack of blocks larger than the leaf (no
-    batched recursion: one recursion a block would cost thousands of
-    launches); engine="auto" naming it for such blocks factors them on
-    the blocked engine, bitwise blocked_potrf of the damped stack."""
+def test_refactor_engines_on_stacks(jx, monkeypatch):
+    """The tree engine factors a stack of blocks larger than the leaf
+    (the reference's vmapped recursion); engine="auto" naming it for such
+    blocks factors them on the tree engine, as the reference's _refactor
+    does: bitwise tree_potrf of the damped stack, and within the bf16
+    ladder's 4e-2 of each block's largest entry of the reference's
+    factor under the same resolution."""
+    from repro import tune as rtune
     from repro_torch import tune
     from repro_torch.core import tree_potrf
     a = torch.from_numpy(_spd_stats(np.random.default_rng(4), 2, 256))
     tcfg = tkfac.TreeNewtonConfig(block=256)
-    with pytest.raises(NotImplementedError):
-        tree_potrf(a, dataclasses.replace(tcfg.precision, engine="tree"))
+    tree = dataclasses.replace(tcfg.precision, engine="tree")
+    assert tree_potrf(a, tree).shape == a.shape
     monkeypatch.setattr(tune, "resolve_cfg", lambda c, n, **kw:
+                        dataclasses.replace(c, engine="tree"))
+    monkeypatch.setattr(rtune, "resolve_cfg", lambda c, n, **kw:
                         dataclasses.replace(c, engine="tree"))
     auto = dataclasses.replace(
         tcfg, precision=dataclasses.replace(tcfg.precision, engine="auto"))
     got = tkfac._refactor(a, auto)
-    assert torch.equal(got, blocked_potrf(tkfac._damped(a, tcfg),
-                                          tcfg.precision))
+    assert torch.equal(got, tree_potrf(tkfac._damped(a, tcfg), tree))
+    rauto = jx.kfac.TreeNewtonConfig(block=256, precision=dataclasses.replace(
+        jx.kfac.TreeNewtonConfig().precision, engine="auto"))
+    want = np.asarray(jx.kfac._refactor(jx.jnp.asarray(a.numpy()), rauto),
+                      np.float64)
+    g = got.double().numpy()
+    for i in range(2):
+        assert np.abs(g[i] - want[i]).max() / np.abs(want[i]).max() < 4e-2
 
 
 @pytest.mark.parametrize("sweeps", [0, 1])
