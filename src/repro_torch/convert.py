@@ -311,8 +311,21 @@ def train_state_layout(state):
 
 def train_state_from_layout(layout, state):
     """``state`` with the host integers of a restored
-    :func:`train_state_layout` (``step`` and the optimizer's counts); its
-    tensors were restored in place."""
+    :func:`train_state_layout` (``step`` and the optimizer's counts). Its
+    tensors were restored in place (``checkpoint.restore_into``), or, where
+    the layout holds new ones (``checkpoint.restore``, with or without
+    ``shardings``), those take the places of the state's."""
+    from repro_torch.checkpoint import leaves as ck_leaves
+    from repro_torch.optim.adamw import tree_map
+    new = {}
+    for (_, old), (_, got) in zip(ck_leaves(train_state_layout(state)),
+                                  ck_leaves(layout)):
+        if isinstance(old, Stacked):
+            new.update((id(a), b) for a, b in zip(old.parts, got.parts))
+        elif torch.is_tensor(old):
+            new[id(old)] = got
+    state = tree_map(lambda _, t: new.get(id(t), t)
+                     if torch.is_tensor(t) else t, state)
     state["step"] = layout["step"]
     opt, lo = state["opt"], layout["opt"]
     if "stats" in opt:
@@ -322,32 +335,25 @@ def train_state_from_layout(layout, state):
 
 
 __all__ = ["config_from_fields", "factor_from_numpy", "factor_to_numpy",
-           "model_params_from_reference", "model_params_to_numpy",
-           "opt_state_from_reference", "opt_state_to_numpy",
+           "gather_train_state", "model_params_from_reference",
+           "model_params_to_numpy", "opt_state_from_reference",
+           "opt_state_to_numpy", "place_batch", "place_caches",
+           "place_opt_state", "place_params", "place_train_state",
            "refine_config_from_fields", "train_state_from_layout",
-           "train_state_layout", "treespd_from_reference",
-           "treespd_to_numpy"]
+           "train_state_layout", "train_state_shardings",
+           "treespd_from_reference", "treespd_to_numpy"]
 
 
 # ---------------------------------------------------------------------------
 # onto a device mesh
 # ---------------------------------------------------------------------------
 def _shard_of(t, spec, mesh):
-    """This rank's block of a whole tensor ``t`` under ``spec``: a
-    dimension over axes (a, b, ...) is cut into prod(sizes) blocks, the
-    rank's block index read major to minor over those axes."""
-    from repro_torch.launch.sharding import mesh_shape
-    shape = mesh_shape(mesh)
-    for d, entry in enumerate(spec):
-        if entry is None:
-            continue
-        idx, n = 0, 1
-        for a in (entry if isinstance(entry, tuple) else (entry,)):
-            idx = idx * shape[a] + mesh.get_local_rank(a)
-            n *= shape[a]
-        w = t.shape[d] // n
-        t = t.narrow(d, idx * w, w)
-    return t.contiguous()
+    """This rank's block of a whole tensor ``t`` under ``spec``
+    (``launch.sharding.local_box``). A copy: the optimizers update a
+    placed state in place, and ``t`` stays as it was."""
+    from repro_torch.launch.sharding import local_box
+    return t[local_box(t.shape, spec, mesh)].clone(
+        memory_format=torch.contiguous_format)
 
 
 def _placed(t, spec, mesh):
@@ -386,6 +392,134 @@ def place_batch(batch, sharder, *, accum: int = 1):
     specs = batch_shardings(batch, sharder, sharder.mesh, accum)
     return {k: _placed(torch.as_tensor(v), specs[k], sharder.mesh)
             for k, v in batch.items()}
+
+
+def _param_specs(params, cfg, mesh, layout):
+    """``{path: spec}`` of the port's parameters (or moments)."""
+    from repro_torch.launch.sharding import param_spec
+    from repro_torch.optim.adamw import leaves
+    return {p: param_spec(p, t, cfg, mesh, layout)
+            for p, t in leaves(params)}
+
+
+def place_opt_state(opt, cfg, mesh, *, layout: str = "tp"):
+    """The port's optimizer state (``adamw.init`` / ``kfac.init`` or a
+    later step, whole tensors) on ``mesh``: AdamW's moments placed as
+    their parameters (``param_spec``), TreeNewton's statistics and
+    factors by ``launch.sharding.stats_owners`` (kept whole where this
+    rank holds them, a ``meta`` tensor of their shape elsewhere), the
+    counts as they are. Every rank calls it with the same state."""
+    from repro_torch.launch.sharding import (Owned, opt_state_shardings,
+                                             spec_items)
+    from repro_torch.optim.adamw import tree_map
+    moments = opt["adam"] if "stats" in opt else opt
+    specs = spec_items(opt_state_shardings(
+        opt, _param_specs(moments["m"], cfg, mesh, layout), mesh))
+
+    def one(path, t):
+        if not torch.is_tensor(t):
+            return t
+        spec = specs[path]
+        if isinstance(spec, Owned):
+            return t.clone() if spec.holds(mesh) else torch.empty(
+                t.shape, dtype=t.dtype, device="meta")
+        if path.startswith(("stats/", "factors/")):
+            if any(e is not None for e in spec):
+                raise NotImplementedError(
+                    f"{path}: statistics sharded over data outside the "
+                    "layers (no family under a mesh has them)")
+            return t.clone()        # held whole by every rank
+        return _placed(t, spec, mesh)
+    return tree_map(one, opt)
+
+
+def place_train_state(state, cfg, mesh, *, layout: str = "tp"):
+    """A whole train state ``{"params", "opt", "step"}`` on ``mesh``:
+    :func:`place_params` and :func:`place_opt_state`. Its
+    :func:`train_state_layout` is what ``checkpoint.save`` writes from a
+    mesh."""
+    return {"params": place_params(state["params"], cfg, mesh,
+                                   layout=layout),
+            "opt": place_opt_state(state["opt"], cfg, mesh, layout=layout),
+            "step": state["step"]}
+
+
+def gather_train_state(state):
+    """A placed train state gathered whole into rank 0's host memory (None
+    on the other ranks, which take part): each DTensor through
+    ``launch.hostwire.gather_to``, each rank's TreeNewton statistics and
+    factors through an object gather. Through the wire: a check's or a
+    driver's summary, not a save's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.hostwire import gather_to
+    from repro_torch.optim.adamw import tree_map
+    me = dist.get_rank()
+
+    def one(_, t):
+        return gather_to(t, (0,)) if isinstance(t, DTensor) else t
+    out = tree_map(one, state)
+    opt = out["opt"]
+    if "stats" in opt:
+        for part in ("stats", "factors"):
+            held = {p: t.cpu() for p, t in opt[part].items()
+                    if t.device.type != "meta"}
+            every = [None] * dist.get_world_size() if me == 0 else None
+            dist.gather_object(held, every, dst=0)
+            if me == 0:
+                got = {}
+                for h in every:
+                    got.update(h)
+                opt[part] = {p: got[p] for p in opt[part]}
+    return out if me == 0 else None
+
+
+def _stack_spec(specs):
+    """The reference's spec of a stack of per-layer leaves placed by
+    ``specs`` (each an ``Owned``, or one spec for all)."""
+    from repro_torch.launch.sharding import Owned
+    if all(isinstance(s, Owned) for s in specs):
+        return ("data", None, None, None)      # (L, nb, block, block)
+    if any(isinstance(s, Owned) for s in specs) or len(set(specs)) > 1:
+        raise ValueError(f"a stack of unlike placements {specs}")
+    return (None, *specs[0])
+
+
+def train_state_shardings(state, cfg, mesh, *, layout: str = "tp"):
+    """The placements on ``mesh`` of :func:`train_state_layout` of
+    ``state`` (a train state whose tensors may be on any device, ``meta``
+    included), as ``checkpoint.restore``'s ``shardings``: the layout's
+    structure with a ``launch.sharding.NamedSharding`` a leaf. A stacked
+    leaf's spec is the reference's of the stack: the layers entry None,
+    or ``data`` for TreeNewton's statistics that ``data`` owns."""
+    from repro_torch.launch.sharding import (NamedSharding,
+                                             opt_state_shardings,
+                                             spec_items)
+    pspecs = _param_specs(state["params"], cfg, mesh, layout)
+    ospecs = spec_items(opt_state_shardings(state["opt"], pspecs, mesh))
+    scalar = NamedSharding(mesh, ())
+
+    def lay(flat):
+        out, layered = _by_layer(flat)
+        named = {p: NamedSharding(mesh, s) for p, s in out.items()}
+        named.update({p: NamedSharding(mesh, _stack_spec(ss))
+                      for p, ss in layered.items()})
+        return _nest(named)
+
+    def sub(prefix):
+        n = len(prefix) + 1
+        return {p[n:]: s for p, s in ospecs.items()
+                if p.startswith(prefix + "/")}
+
+    def adam(prefix):
+        return {"m": lay(sub(f"{prefix}m")), "v": lay(sub(f"{prefix}v")),
+                "count": scalar}
+    if "stats" in state["opt"]:
+        opt = {"adam": adam("adam/"), "stats": lay(sub("stats")),
+               "factors": lay(sub("factors")), "count": scalar}
+    else:
+        opt = adam("")
+    return {"params": lay(pspecs), "opt": opt, "step": scalar}
 
 
 def place_caches(caches, cfg, sharder):

@@ -10,8 +10,12 @@ all-reduce (``ef_allreduce``) and the reference's mini data-parallel
 trainer on it (``train_dp``) the same way, and
 ``tests/test_torch_mesh_serve.py`` and ``chip_smoke.py``'s
 ``generate_mesh`` phase drive model serving under a ``data x model`` mesh
-(``mesh_serve``, ``moe_ep``) through :func:`run_mesh_cases`. Each case builds its inputs on
-the rank from a seed (:func:`spd_matrix`) or takes the caller's arrays,
+(``mesh_serve``, ``moe_ep``) through :func:`run_mesh_cases`, and
+``tests/test_torch_mesh_train.py`` and the ``train_mesh`` phase training
+there (``mesh_train``: the sharded step against the single rank's;
+``elastic``: a mesh's save resumed on another mesh and on one process).
+Each case builds its inputs on the rank from a seed (:func:`spd_matrix`)
+or takes the caller's arrays,
 calls the port's entry points as a user would, and
 returns, on rank 0, what the caller checks: results, times and, per rank,
 launches by kernel and bytes by collective. The other ranks return None.
@@ -699,7 +703,454 @@ def moe_ep(mesh, device, data, *, cfg, params="moe_params", x="moe_x",
             if dist.get_rank() == 0 else None)
 
 
-MESH_CASES = {"mesh_serve": mesh_serve, "moe_ep": moe_ep}
+# ---------------------------------------------------------------------------
+# training under a data x model mesh
+# ---------------------------------------------------------------------------
+def _train_cfg(optimizer, lr, block, accum, ladder=None,
+               state_dtype="f32"):
+    """AdamW (no warmup; moments in ``state_dtype``) or TreeNewton with a
+    refactor every step (the default bf16_f32 ladder, or ``ladder``'s)."""
+    from repro_torch.optim import AdamWConfig, TreeNewtonConfig
+    from repro_torch.train import TrainConfig
+    adam = AdamWConfig(lr=lr, warmup=0, total_steps=100,
+                       state_dtype=state_dtype)
+    tn = TreeNewtonConfig(adam=adam, block=block, factor_every=1,
+                          stats_every=1)
+    if ladder is not None:
+        tn = dataclasses.replace(tn, precision=_cfg(ladder, leaf=128))
+    return TrainConfig(optimizer=optimizer, adam=adam, tree_newton=tn,
+                       accum=accum)
+
+
+def _batches(cfg, B, S, seed):
+    """Step ``i``'s batch (numpy), the same on every rank:
+    ``data.SyntheticLM`` from ``seed``."""
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(cfg.vocab, B, S, seed=seed,
+                       n_codebooks=cfg.n_codebooks,
+                       n_img_tokens=cfg.n_img_tokens, d_model=cfg.d_model)
+    return data.get
+
+
+def _on(batch, device, accum):
+    from repro_torch.train import reshape_for_accum
+    return reshape_for_accum({k: torch.from_numpy(v).to(device)
+                              for k, v in batch.items()}, accum)
+
+
+def _steps(step_fn, state, batch_of, first, n, device, place=None):
+    """``n`` steps from step ``first``; per step the loss and, on a mesh,
+    the step's seconds, bytes by collective and launches."""
+    from repro_torch.launch import hostwire
+    out = {"losses": [], "grad_norms": [], "step_s": [], "wire": [],
+           "launches": [], "batched": [], "flash_routes": []}
+    for i in range(first, first + n):
+        batch = batch_of(i)
+        if place is not None:
+            batch = place(batch)
+        ops.reset_launches()
+        hostwire.reset_wire()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["loss"])
+        _sync(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["wire"].append(copy.deepcopy(hostwire.WIRE))
+        out["launches"].append(dict(ops.LAUNCHES))
+        out["batched"].append(dict(ops.BATCHED))
+        out["flash_routes"].append(dict(ops.FLASH_ROUTES))
+    return state, out
+
+
+def _params_gap(placed, ref, adam, steps) -> dict | None:
+    """The placed train state's parameters and first moments against
+    ``ref``'s (:func:`_single_card`'s host copies on rank 0, None
+    elsewhere; every rank takes part, each leaf gathered to rank 0 in
+    turn): ``resolved``, max |placed - ref| where ref's first moment says
+    |g| > 100 eps; ``unresolved_steps``, the largest |placed - ref|
+    elsewhere in units of ``steps`` steps' size lr (1 + wd |p|), where
+    AdamW's g / (|g| + eps) moves with the last bits of g
+    (tests/test_torch_train.py); ``all``, the max over every entry;
+    ``m_rel``, the first moments' largest gap over a leaf's largest
+    |m|: after one step m = (1 - b1) g, so it reads the gradient's
+    magnitude, which AdamW's first update does not (TreeNewton's whitened
+    leaves apart, under ``m_rel_whitened``: their statistics hold their
+    gradients)."""
+    from repro_torch.launch.hostwire import gather_to
+    from repro_torch.optim.adamw import leaves, schedule
+    gap = {"resolved": 0.0, "unresolved_steps": 0.0, "all": 0.0,
+           "m_rel": 0.0, "m_rel_whitened": 0.0}
+    lr = float(schedule(adam, steps))
+    opt = placed["opt"]
+    moments = dict(leaves((opt["adam"] if "stats" in opt else opt)["m"]))
+    for p, a in leaves(placed["params"]):
+        full, m = gather_to(a, (0,)), gather_to(moments[p], (0,))
+        if ref is not None:
+            w = ref["params"][p].float()
+            err = (full.float() - w).abs()
+            res = ref["m"][p].float().abs() / (1 - adam.b1) > 100 * adam.eps
+            step = steps * lr * (1 + adam.weight_decay * w.abs())
+            gap["all"] = max(gap["all"], float(err.max()))
+            if res.any():
+                gap["resolved"] = max(gap["resolved"],
+                                      float(err[res].max()))
+            if (~res).any():
+                gap["unresolved_steps"] = max(
+                    gap["unresolved_steps"],
+                    float((err[~res] / step[~res]).max()))
+            key = "m_rel_whitened" if p in ref.get("stats", {}) else "m_rel"
+            gap[key] = max(gap[key], _rel(m, ref["m"][p]))
+        del full, m
+    return gap if ref is not None else None
+
+
+def _rel(got, want) -> float:
+    """max|got - want| / max|want| (0 where both are 0)."""
+    g, w = got.double(), want.to(got.device).double()
+    err = float((g - w).abs().max())
+    return err / float(w.abs().max()) if err else 0.0
+
+
+def _first_step_gaps(placed, ref, tcfg, optimizer) -> dict:
+    """After one step: the parameters' and first moments' gaps
+    (:func:`_params_gap`) and, for TreeNewton, the statistics' and
+    factors' (each matrix against its largest entry), the ranks' held
+    matrices gathered onto rank 0."""
+    out = {"params_gap": _params_gap(placed, ref, tcfg.adam, 1)}
+    if optimizer == "tree_newton":
+        for part in ("stats", "factors"):
+            mine = {p: t.cpu() for p, t in placed["opt"][part].items()
+                    if t.device.type != "meta"}
+            every = {}
+            for h in _per_rank(mine):
+                every.update(h)
+            if ref is not None:
+                out[f"{part}_rel"] = _stats_rel(every, ref[part])
+    return out
+
+
+def _stats_rel(got, want) -> float:
+    """max over matrices of max|got - want| / max|want|."""
+    return max((_rel(got[p], w) for p, w in want.items()), default=0.0)
+
+
+def mesh_train(mesh, device, data, *, arch, layout="tp", smoke=True,
+               n_layers=2, dtype="f32", over=None, optimizer="adamw",
+               accum=1, B=4, S=16, steps=1, seed=0, params=None, lr=1e-2,
+               block=64, ladder=None, one_rank=False, return_state=False,
+               fixed_batch=False, place_whole=False):
+    """``steps`` train steps under the mesh's sharder (``layout``): the
+    port's parameters from ``seed`` (or the caller's reference pytree
+    ``data[params]``), placed, and the optimizer's state made on them
+    (``init_opt(..., mesh)``), batches from ``SyntheticLM(seed)`` placed
+    by ``place_batch`` (``accum`` microbatches). Rank 0 returns
+    the losses, per rank the step seconds, peak GiB, bytes by collective
+    and launches of each step; with ``return_state`` the final state
+    gathered whole (numpy, the reference's layout), and with
+    ``one_rank`` the same steps unsharded on rank 0 and the gaps:
+    losses, parameters, TreeNewton's statistics and factors (each matrix
+    against its largest entry). ``fixed_batch`` trains every step on the
+    first batch. No rank holds a whole optimizer state but rank 0 with
+    ``one_rank``, unless ``place_whole``: then every rank makes the whole
+    state and places it (``convert.place_train_state``)."""
+    from repro_torch import convert
+    from repro_torch.launch.sharding import make_sharder
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_opt
+    cfg = _model_cfg(arch, smoke=smoke, n_layers=n_layers, dtype=dtype,
+                     over=over)
+    tcfg = _train_cfg(optimizer, lr, block, accum, ladder)
+    sh = make_sharder(mesh, multi_pod=False, batch=B // accum,
+                      layout=layout)
+    full = (convert.model_params_from_reference(data[params], cfg, device)
+            if params is not None else
+            T.init_params(cfg, seed=seed, device=device))
+    with torch.no_grad():
+        if place_whole:
+            placed = convert.place_train_state(
+                {"params": full, "opt": init_opt(full, tcfg), "step": 0},
+                cfg, mesh, layout=layout)
+        else:
+            pp = convert.place_params(full, cfg, mesh, layout=layout)
+            placed = {"params": pp, "opt": init_opt(pp, tcfg, mesh),
+                      "step": 0}
+    draw = _batches(cfg, B, S, seed + 1)
+    batch_of = (lambda i: _on(draw(0 if fixed_batch else i), device,
+                              accum))
+    # the single card first, on rank 0 (the others wait at the mesh's
+    # first collective); its first step is kept on the host
+    ref = _single_card(cfg, tcfg, full, batch_of, steps, device) \
+        if one_rank and dist.get_rank() == 0 else None
+    del full
+    _release(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    mesh_fn = make_train_step(cfg, tcfg, sh)
+    place = (lambda b: convert.place_batch(b, sh, accum=accum))
+    # with one_rank, the gaps after the first step (the reference's test
+    # is one step: a second one starts from parameters that differ where
+    # g / (|g| + eps) read the last bits of a tiny g), the losses of all
+    placed, r = _steps(mesh_fn, placed, batch_of, 0, 1 if one_rank else
+                       steps, device, place)
+    if one_rank:
+        gaps = _first_step_gaps(placed, ref, tcfg, optimizer)
+        if steps > 1:
+            placed, more = _steps(mesh_fn, placed, batch_of, 1, steps - 1,
+                                  device, place)
+            for k, v in more.items():
+                r[k] += v
+    if device.type == "cuda":
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = [p for p, t in placed["opt"].get("stats", {}).items()
+            if t.device.type != "meta"]
+    r["stats_held"] = len(held)
+    ranks = _per_rank(r)
+    out = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+           "ranks": ranks, "held": [x["stats_held"] for x in ranks]}
+    if return_state:
+        g = convert.gather_train_state(placed)
+        if g is not None:
+            out["state"] = {"params": convert.model_params_to_numpy(
+                g["params"]), "opt": convert.opt_state_to_numpy(g["opt"]),
+                "step": g["step"]}
+    if one_rank:
+        out.update(gaps)
+        if ref is not None:
+            out["one_rank"] = ref["run"]
+    del placed
+    _release(device)
+    return out if dist.get_rank() == 0 else None
+
+
+def _single_card(cfg, tcfg, params, batch_of, steps, device) -> dict:
+    """``steps`` unsharded steps from ``params`` (updated in place): the
+    run's losses and launches, and the parameters, first moments and
+    TreeNewton matrices after the first step, copied to the host."""
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_opt
+    state = {"params": params, "opt": init_opt(params, tcfg), "step": 0}
+    fn = make_train_step(cfg, tcfg)
+    state, r = _steps(fn, state, batch_of, 0, 1, device)
+    opt = state["opt"]
+
+    def copy(tree):         # the state moves on in place
+        return {p: t.to("cpu", copy=True) for p, t in tree}
+    host = {"params": copy(leaves(state["params"])),
+            "m": copy(leaves((opt["adam"] if "stats" in opt else opt)["m"]))}
+    for part in ("stats", "factors"):
+        if part in opt:
+            host[part] = copy(opt[part].items())
+    if steps > 1:
+        state, more = _steps(fn, state, batch_of, 1, steps - 1, device)
+        for k, v in more.items():
+            r[k] += v
+    host["run"] = {k: r[k] for k in ("losses", "grad_norms", "launches",
+                                     "batched")}
+    return host
+
+
+def single_card_train(device, *, arch, smoke=True, n_layers=2, dtype="f32",
+                      over=None, optimizer="adamw", B=4, S=16, steps=1,
+                      seed=0, lr=1e-2, block=64, ladder=None,
+                      fixed_batch=False) -> dict:
+    """:func:`mesh_train`'s run with the same arguments (the same
+    parameters, batches and optimizer) in one process with no mesh: its
+    losses, gradient norms and step seconds."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_opt
+    device = torch.device(device)
+    cfg = _model_cfg(arch, smoke=smoke, n_layers=n_layers, dtype=dtype,
+                     over=over)
+    tcfg = _train_cfg(optimizer, lr, block, 1, ladder)
+    params = T.init_params(cfg, seed=seed, device=device)
+    draw = _batches(cfg, B, S, seed + 1)
+    state = {"params": params, "opt": init_opt(params, tcfg), "step": 0}
+    state, r = _steps(make_train_step(cfg, tcfg), state,
+                      lambda i: _on(draw(0 if fixed_batch else i), device, 1),
+                      0, steps, device)
+    del state, params
+    _release(device)
+    return {k: r[k] for k in ("losses", "grad_norms", "step_s")}
+
+
+def _placed_state(cfg, tcfg, mesh, layout, device, seed):
+    """``init_state`` on ``mesh``: the parameters drawn whole and placed,
+    the optimizer's state made on the placed ones."""
+    from repro_torch import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import init_opt
+    with torch.no_grad():
+        pp = convert.place_params(T.init_params(cfg, seed=seed,
+                                                device=device), cfg, mesh,
+                                  layout=layout)
+    return {"params": pp, "opt": init_opt(pp, tcfg, mesh), "step": 0}
+
+
+def elastic(mesh, device, data, *, arch, ckpt_dir, smoke=True, n_layers=2,
+            dtype="f32", over=None, optimizer="adamw", B=4, S=16, first=3,
+            more=2, seed=0, lr=1e-2, block=64, state_dtype="f32",
+            byte_check=False):
+    """The reference's elastic test (tests/test_elastic.py) on this
+    group: ``first`` steps on the (2, 2) mesh under ``tp``, a save
+    (every rank writes its slices), ``more`` steps as the reference
+    trajectory; then the checkpoint restored with ``shardings`` onto a
+    (4, 1) mesh under ``ddp`` and, on rank 0, into one process with no
+    mesh, each running the same ``more`` steps. Rank 0 returns the
+    losses of each and the parameter gaps to the trajectory's; with
+    ``byte_check`` whether every saved file equals, byte for byte, a
+    one-process save of the same state gathered whole."""
+    import filecmp
+    import os
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import convert
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import make_sharder
+    from repro_torch.models.common import NO_SHARD
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_state, make_train_step
+    cfg = _model_cfg(arch, smoke=smoke, n_layers=n_layers, dtype=dtype,
+                     over=over)
+    tcfg = _train_cfg(optimizer, lr, block, 1, state_dtype=state_dtype)
+    me = dist.get_rank()
+    batch_of = _batches(cfg, B, S, seed + 1)
+    out = {}
+
+    def run(state, sharder, first_step, n):
+        fn = make_train_step(cfg, tcfg, sharder)
+        place = (None if not sharder.enabled else
+                 lambda b: convert.place_batch(b, sharder))
+        return _steps(fn, state, lambda i: _on(batch_of(i), device, 1),
+                      first_step, n, device, place)
+
+    sh = make_sharder(mesh, multi_pod=False, batch=B)
+    state = _placed_state(cfg, tcfg, mesh, "tp", device, seed)
+    state, r0 = run(state, sh, 0, first)
+    t0 = time.perf_counter()
+    h = ckpt.save(ckpt_dir, first, convert.train_state_layout(state),
+                  blocking=True)
+    out["save_s"] = time.perf_counter() - t0
+    out["ckpt_bytes"] = sum(os.path.getsize(os.path.join(h.final, f))
+                            for f in os.listdir(h.final)) if me == 0 else 0
+    if byte_check:
+        whole = convert.gather_train_state(state)
+        if me == 0:
+            one = ckpt.save(ckpt_dir + "_one", first,
+                            convert.train_state_layout(whole),
+                            blocking=True).wait()
+            names = sorted(os.listdir(h.final))
+            out["byte_equal"] = (names == sorted(os.listdir(one)) and all(
+                filecmp.cmp(os.path.join(h.final, f),
+                            os.path.join(one, f), shallow=False)
+                for f in names))
+            shutil.rmtree(ckpt_dir + "_one")
+        del whole
+    state, ref = run(state, sh, first, more)
+    want = None
+    if me == 0:
+        want = _gathered_params(state)
+    else:
+        _gathered_params(state)
+    del state
+    _release(device)
+    out["first_losses"], out["ref_losses"] = r0["losses"], ref["losses"]
+
+    # onto (4, 1) under ddp, restored with the new mesh's shardings
+    mesh4 = make_host_mesh(4, 1, device_type=device.type)
+    sh4 = make_sharder(mesh4, multi_pod=False, batch=B, layout="ddp")
+    template = init_state(cfg, tcfg, device="meta")
+    t0 = time.perf_counter()
+    layout, s0 = ckpt.restore(ckpt_dir, convert.train_state_layout(template),
+                              shardings=convert.train_state_shardings(
+                                  template, cfg, mesh4, layout="ddp"))
+    restored = convert.train_state_from_layout(layout, template)
+    out["restore_s"] = time.perf_counter() - t0
+    restored, r4 = run(restored, sh4, s0, more)
+    got = _gathered_params(restored)
+    del restored
+    _release(device)
+    out["mesh_4x1"] = {"start": s0, "losses": r4["losses"]}
+
+    # one process, no mesh; its second moments tell which gradients both
+    # trajectories resolve
+    if me == 0:
+        one = init_state(cfg, tcfg, seed=seed + 7, device=device)
+        lay, s1 = ckpt.restore_into(ckpt_dir, convert.train_state_layout(one))
+        one = convert.train_state_from_layout(lay, one)
+        one, r1 = run(one, NO_SHARD, s1, more)
+        adam = one["opt"]["adam"] if "stats" in one["opt"] else one["opt"]
+        v = {p: t.cpu() for p, t in leaves(adam["v"])}
+        resolve = (tcfg.adam, adam["count"], v, more)
+        out["one_process"] = {"start": s1, "losses": r1["losses"],
+                              "params_gap": _gap(
+                                  {p: t.cpu() for p, t in
+                                   leaves(one["params"])}, want, resolve)}
+        out["mesh_4x1"]["params_gap"] = _gap(got, want, resolve)
+        del one
+    dist.barrier()
+    if me == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out if me == 0 else None
+
+
+def _release(device) -> None:
+    """Hand the card's cached blocks back (the ranks share one card)."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _gathered_params(state) -> dict:
+    """``{path: whole tensor}`` of a placed state's parameters on rank 0's
+    host (every rank takes part; the others get an empty dict)."""
+    from repro_torch.launch.hostwire import gather_to
+    from repro_torch.optim.adamw import leaves
+    out = {}
+    for p, t in leaves(state["params"]):
+        full = gather_to(t, (0,))
+        if full is not None:
+            out[p] = full
+    return out
+
+
+def _gap(got, want, resolve=None) -> dict:
+    """``max_abs`` of got - want over the parameters; with ``resolve`` =
+    (AdamW config, count, second moments, steps) also ``resolved``, the
+    max where the bias-corrected second moment resolves the gradient
+    (sqrt(v / (1 - b2^count)) > 100 eps), and ``beyond``: how many
+    entries differ by more than 1e-4 there, or elsewhere by more than the
+    steps' own size lr (1 + wd |w|) (AdamW's m / sqrt(v) reads the last
+    bits of a gradient near 0)."""
+    from repro_torch.optim.adamw import schedule
+    worst, res_worst, beyond = 0.0, 0.0, 0
+    for p, w in want.items():
+        w = w.float()
+        err = (got[p].float() - w).abs()
+        worst = max(worst, float(err.max()))
+        if resolve is None:
+            continue
+        adam, count, v, steps = resolve
+        res = torch.sqrt(v[p].float() / (1 - adam.b2 ** count)) \
+            > 100 * adam.eps
+        lr = float(schedule(adam, count))
+        bound = torch.where(res, torch.full_like(w, 1e-4),
+                            steps * lr * (1 + adam.weight_decay * w.abs()))
+        if res.any():
+            res_worst = max(res_worst, float(err[res].max()))
+        beyond += int((err > bound).sum())
+    out = {"max_abs": worst}
+    if resolve is not None:
+        out.update(resolved=res_worst, beyond=beyond)
+    return out
+
+
+MESH_CASES = {"mesh_serve": mesh_serve, "moe_ep": moe_ep,
+              "mesh_train": mesh_train, "elastic": elastic}
 
 
 def run_mesh_cases(cases, device="cuda", data=None, mesh_shape=(2, 2)):

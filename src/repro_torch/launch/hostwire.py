@@ -17,12 +17,24 @@ same code. Every op returns a finished tensor (the collectives are
 synchronous), so ``wait_tensor`` has nothing to wait for.
 
 ``reduce_scatter_tensor`` is an ``all_reduce`` and a slice, and the
-all-to-alls an ``all_gather`` and a slice: gloo has no reduce-scatter,
-so the bytes counted are what moved. :data:`WIRE` counts each rank's
-bytes by collective and dtype, as ``core.distributed.WIRE`` counts the
-solver's.
+all-to-alls an ``all_gather`` and a slice: the bytes counted are what
+moved (a reduce-scatter's, under ``reduce_scatter``, its whole operand:
+twice a ring's; gloo's own list-form reduce-scatter was no faster on the
+H100 machine's host). :data:`WIRE` counts each rank's bytes by collective
+and dtype, as ``core.distributed.WIRE`` counts the solver's.
+
+Training reaches the same ops: the backward of a gather over ``data``
+(ZeRO-3's parameters) is a reduce-scatter, the backward of an
+all-to-all an all-to-all, and a Partial gradient's reduction an
+all-reduce, all staged here.
+
+:func:`gather_to` brings a placed tensor whole to the ranks that need it
+(TreeNewton's owners of a layer, rank 0 for a check or a summary) and to
+no other: point to point through host memory, counted under ``gather``.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.distributed as dist
@@ -62,12 +74,12 @@ def _gather(x, group) -> list:
     return out
 
 
-def _reduce(x, reduce_op: str, group):
+def _reduce(x, reduce_op: str, group, label: str = "all_reduce"):
     op = reduce_op.lower()
     if op not in _REDUCE:
         raise NotImplementedError(f"hostwire: reduce op {reduce_op!r}")
     host = x.detach().to("cpu", copy=True).contiguous()
-    _count("all_reduce", host)
+    _count(label, host)
     dist.all_reduce(host, op=_REDUCE[op], group=group)
     if op == "avg":
         host = host / dist.get_world_size(group)
@@ -85,7 +97,7 @@ def all_reduce(x, reduce_op, group_name):
 
 def reduce_scatter_tensor(x, reduce_op, group_size, group_name):
     g = _group(group_name)
-    full = _reduce(x, reduce_op, g)
+    full = _reduce(x, reduce_op, g, "reduce_scatter")
     return full.chunk(group_size)[dist.get_rank(g)].contiguous().to(x.device)
 
 
@@ -112,6 +124,77 @@ def broadcast(x, src, group_name):
     _count("broadcast", host)
     dist.broadcast(host, src=dist.get_global_rank(g, src), group=g)
     return host.to(x.device)
+
+
+def _boxes(t) -> dict:
+    """``{global rank: box}`` of a Shard/Replicate DTensor over its mesh:
+    each rank's slices of the global tensor, ``((lo, hi), ...)``, split as
+    DTensor splits (``torch.chunk`` sizes, mesh dimensions left to
+    right)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ranks = t.device_mesh.mesh
+    out = {}
+    for coord in _coords(ranks.shape):
+        box = [[0, n] for n in t.shape]
+        for i, q in enumerate(t.placements):
+            if isinstance(q, Shard):
+                lo, hi = box[q.dim]
+                c = -(-(hi - lo) // ranks.shape[i])
+                j = coord[i]
+                box[q.dim] = [min(lo + j * c, hi), min(lo + (j + 1) * c, hi)]
+            elif not isinstance(q, Replicate):
+                raise ValueError(f"hostwire.gather_to: placed {t.placements}")
+        out[int(ranks[coord])] = tuple(map(tuple, box))
+    return out
+
+
+def gather_to(t, dsts):
+    """A DTensor's whole tensor in host memory on each global rank of
+    ``dsts``, None on the other ranks (every rank of the mesh calls it).
+    Each distinct shard goes once to each destination that lacks it, from
+    the holder that shares the most mesh coordinates with the destination
+    (point to point, through host memory); each rank's sent bytes are
+    counted under ``gather``."""
+    me = dist.get_rank()
+    boxes = _boxes(t)
+    ranks = t.device_mesh.mesh
+    coords = {int(ranks[c]): c for c in _coords(ranks.shape)}
+    local = t.to_local()
+    if tuple(local.shape) != tuple(hi - lo for lo, hi in boxes[me]):
+        raise AssertionError(f"hostwire.gather_to: local shard "
+                             f"{tuple(local.shape)}, box {boxes[me]}")
+    distinct = sorted(set(boxes.values()))
+    host, recvs, works = None, [], []
+    for dst in sorted(set(dsts)):
+        for box in distinct:
+            if box == boxes[dst]:
+                continue
+            src = max((r for r, b in boxes.items() if b == box),
+                      key=lambda r: (sum(a == b for a, b in
+                                         zip(coords[r], coords[dst])), -r))
+            if me == src:
+                if host is None:
+                    host = local.detach().to("cpu").contiguous()
+                _count("gather", host)
+                works.append(dist.isend(host, dst))
+            elif me == dst:
+                buf = torch.empty(tuple(hi - lo for lo, hi in box),
+                                  dtype=local.dtype)
+                works.append(dist.irecv(buf, src))
+                recvs.append((box, buf))
+    for w in works:
+        w.wait()
+    if me not in dsts:
+        return None
+    out = torch.empty(tuple(t.shape), dtype=local.dtype)
+    out[tuple(slice(lo, hi) for lo, hi in boxes[me])] = local.detach().cpu()
+    for box, buf in recvs:
+        out[tuple(slice(lo, hi) for lo, hi in box)] = buf
+    return out
+
+
+def _coords(shape):
+    return itertools.product(*(range(n) for n in shape))
 
 
 def _coalesced(fn):

@@ -24,14 +24,23 @@ of the stacked leaf ``[L, *shape]`` with its leading layers entry
 dropped: :func:`param_spec` computes exactly that, with the group's true
 ``L``, since the ``ddp`` rule's choice of dimension reads it.
 
-Deferred to the training slice (ROADMAP A3): ``opt_state_shardings``.
-The reference shards TreeNewton's statistics ``[L, nb, b, b]`` on their
-stacked ``L`` over ``data``, which has no counterpart in the port's
-``(nb, b, b)`` a layer.
+Optimizer state (:func:`opt_state_shardings`): AdamW's moments take
+their parameter's spec. The reference shards TreeNewton's statistics and
+factors ``[L, nb, b, b]`` on their stacked ``L`` over ``data`` where
+``data`` divides ``L``; the port keeps one ``(nb, b, b)`` a layer, so
+layer ``i``'s are :class:`Owned` by the ranks at ``data`` coordinate ``i
+// (L / data)``, whole, replicated over the other axes and absent
+elsewhere: every rank holds the reference's bytes. A leaf the
+reference replicates stays replicated.
+
+:class:`NamedSharding` pairs a mesh with a spec (``jax.sharding``'s
+counterpart), the form ``checkpoint.restore``'s ``shardings`` take.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
+from typing import Any
 
 from repro_torch.models.common import ModelConfig, Sharder
 
@@ -61,6 +70,31 @@ def _axis_size(mesh, axis) -> int:
 
 def _div(n, mesh, axis):
     return axis is not None and n % _axis_size(mesh, axis) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Owned:
+    """A leaf held whole by the ranks whose coordinate on mesh axis
+    ``axis`` is ``index`` (replicated over the other axes) and by no other
+    rank: a layer's TreeNewton statistics or factors."""
+    axis: str
+    index: int
+
+    def holds(self, mesh) -> bool:
+        """Whether this rank holds the leaf (``mesh`` a DeviceMesh)."""
+        return mesh.get_local_rank(self.axis) == self.index
+
+    def ranks(self, mesh) -> list:
+        """The global ranks that hold the leaf (``mesh`` a DeviceMesh)."""
+        dim = axis_names(mesh).index(self.axis)
+        return mesh.mesh.select(dim, self.index).flatten().tolist()
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    spec: tuple
 
 
 def placements(spec, mesh) -> list:
@@ -94,6 +128,26 @@ def local_shape(shape, spec, mesh) -> tuple:
         if size % n:
             raise ValueError(f"dimension {size} does not divide over {entry}")
         out.append(size // n)
+    return tuple(out)
+
+
+def local_box(shape, spec, mesh) -> tuple:
+    """The slices of a tensor of ``shape`` that this rank's shard under
+    ``spec`` covers on ``mesh`` (a DeviceMesh): a dimension over axes
+    (a, b, ...) is cut into prod(sizes) blocks, the rank's block index
+    read major to minor over those axes, as DTensor splits it."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if entry is None:
+            out.append(slice(0, n))
+            continue
+        idx, k = 0, 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            idx = idx * sizes[a] + mesh.get_local_rank(a)
+            k *= sizes[a]
+        w = n // k
+        out.append(slice(idx * w, (idx + 1) * w))
     return tuple(out)
 
 
@@ -239,6 +293,93 @@ def param_shardings(shapes, cfg: ModelConfig, mesh, layout: str = "tp"):
     shapes)."""
     return _tree_map(lambda p, l: param_spec(p, l, cfg, mesh, layout),
                      shapes)
+
+
+# ---------------------------------------------------------------------------
+# optimizer state
+# ---------------------------------------------------------------------------
+_MOMENT = re.compile(r"^(?:adam/)?(?:m|v)/(.*)$")
+_STATS = re.compile(r"^(?:stats|factors)/(.*)$")
+
+
+def _stats_owner(path: str, shape, n_layers: int, mesh):
+    """:func:`stats_owners`' rule for one path, ``n_layers`` its group's
+    ``L``."""
+    shape = _shape(shape)
+    nd = mesh_shape(mesh)["data"]
+    m = _LAYERED.match(path)
+    if m is not None:
+        if n_layers % nd == 0:
+            return Owned("data", int(m.group(2)) // (n_layers // nd))
+        return (None,) * len(shape)
+    if len(shape) >= 3 and shape[0] % nd == 0:
+        return ("data",) + (None,) * (len(shape) - 1)
+    return (None,) * len(shape)
+
+
+def stats_owners(shapes: dict, mesh) -> dict:
+    """The placements of TreeNewton's statistics (or factors), ``shapes``
+    ``{parameter path: shape}``: a layer's (``layers/<i>/...``, ``L``
+    layers in its group, counted from the paths) :class:`Owned` by data
+    coordinate ``i // (L / data)`` where ``data`` divides ``L``; any
+    other leaf sharded on its first dimension over ``data`` where that
+    divides it, as the reference's rule. Replicated otherwise."""
+    groups: dict = {}
+    for p in shapes:
+        m = _LAYERED.match(p)
+        if m is not None:
+            key = (m.group(1), p[m.end():])
+            groups[key] = groups.get(key, 0) + 1
+    out = {}
+    for p, shape in shapes.items():
+        m = _LAYERED.match(p)
+        n = groups[(m.group(1), p[m.end():])] if m else 0
+        out[p] = _stats_owner(p, shape, n, mesh)
+    return out
+
+
+def spec_items(tree, prefix: str = "") -> dict:
+    """``{path: spec}`` of a tree of specs (nested dicts and lists whose
+    leaves are spec tuples or :class:`Owned`; a dict's keys may be whole
+    paths)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(spec_items(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def opt_state_shardings(opt_shapes, param_shardings, mesh):
+    """The optimizer state's placements (the reference's rule, module
+    docstring): AdamW's moments (``m/<path>``, ``adam/m/<path>``, ...)
+    their parameter's spec from ``param_shardings``; TreeNewton's
+    ``stats/<path>`` and ``factors/<path>`` by :func:`stats_owners`;
+    scalars and anything else replicated. ``opt_shapes`` holds tensors or
+    shapes; host integers (the counts) map to ``()``. ``param_shardings``
+    is :func:`param_shardings`' tree or a ``{path: spec}`` dict."""
+    pflat = spec_items(param_shardings)
+    stats = {}
+    _tree_map(lambda p, l: stats.__setitem__(_STATS.match(p).group(1), l)
+              if _STATS.match(p) else None, opt_shapes)
+    owners = stats_owners(stats, mesh)
+
+    def one(path, leaf):
+        if isinstance(leaf, int):
+            return ()
+        mm = _MOMENT.match(path)
+        if mm and mm.group(1) in pflat:
+            return pflat[mm.group(1)]
+        ms = _STATS.match(path)
+        if ms:
+            return owners[ms.group(1)]
+        return (None,) * len(_shape(leaf))
+
+    return _tree_map(one, opt_shapes)
 
 
 # ---------------------------------------------------------------------------

@@ -213,7 +213,9 @@ def _attention_sharded(q, k, v, cfg: ModelConfig, sharder: Sharder, *,
     q_spec = (b, None, m if q_heads else None, None)
     kv_spec = (b, None, m if kv_shard else None, None)
     ql = sharder.local(q, q_spec)
-    kl, vl = sharder.local(k, kv_spec), sharder.local(v, kv_spec)
+    # keys and values replicated over model, read by each rank's heads
+    part = (m,) if q_heads and not kv_shard else ()
+    kl, vl = (sharder.local(t, kv_spec, part) for t in (k, v))
     kv_heads = None
     if q_heads and not kv_shard:
         h0 = sharder.rank(m) * ql.shape[2]

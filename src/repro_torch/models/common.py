@@ -129,12 +129,31 @@ class Sharder:
             return x
         return x.redistribute(self.mesh, want)
 
-    def local(self, x, spec):
+    def local(self, x, spec, partial=()):
         """This rank's shard of ``x`` redistributed to ``spec`` (``x``
-        itself without a mesh): the way into a local-map boundary."""
+        itself without a mesh): the way into a local-map boundary.
+
+        Its gradient is read as placed by ``spec``, except over the mesh
+        axes named in ``partial``: there ``x`` is replicated but the ranks
+        along the axis use it for different parts of the boundary's output
+        (their own heads or experts), so each rank's gradient is a partial
+        sum, which the backward adds over the axis (the counterpart of
+        ``shard_map``'s transpose of an unmapped input)."""
         if not self.enabled:
             return x
-        return self.c(x, spec).to_local()
+        d = self.c(x, spec)
+        if not partial:
+            return d.to_local()
+        from torch.distributed.tensor import Partial, Replicate
+        from repro_torch.launch.sharding import axis_names
+        grad = list(d.placements)
+        for i, a in enumerate(axis_names(self.mesh)):
+            if a in partial:
+                if not isinstance(grad[i], Replicate):
+                    raise ValueError(f"local: {spec} shards axis {a!r}, "
+                                     "whose gradient it calls partial")
+                grad[i] = Partial()
+        return d.to_local(grad_placements=grad)
 
     def wrap(self, local, spec):
         """A DTensor of this rank's shard ``local`` placed by ``spec``
@@ -147,6 +166,32 @@ class Sharder:
         return DTensor.from_local(local, self.mesh,
                                   placements(spec, self.mesh),
                                   run_check=False)
+
+    def reduce(self, local, axes, op: str = "sum"):
+        """``local`` (each rank's own tensor) reduced over the mesh axes
+        ``axes`` by ``op`` ("sum" or "max"), differentiable for "sum":
+        the counterpart of ``lax.psum`` / ``lax.pmax`` inside a boundary
+        (``local`` itself without a mesh or without axes). The batch axes
+        that ``axes`` leave out keep their rows (no collective there)."""
+        axes = tuple(a for a in axes if a is not None)
+        if not self.enabled or not axes:
+            return local
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        from repro_torch.launch.sharding import axis_names
+        names = axis_names(self.mesh)
+        batch = tuple(self.batch_axes)
+        pin, pout = [], []
+        for a in names:
+            if a in axes:
+                pin.append(Partial(op))
+                pout.append(Replicate())
+            else:
+                keep = Shard(0) if a in batch and local.dim() else Replicate()
+                pin.append(keep)
+                pout.append(keep)
+        d = DTensor.from_local(local, self.mesh, pin, run_check=False)
+        return d.redistribute(self.mesh, pout).to_local()
 
     def rank(self, axis) -> int:
         """This rank's index on mesh axis ``axis`` (0 without a mesh)."""
@@ -274,6 +319,41 @@ def cross_entropy(logits, labels, *, z_loss=1e-4):
     ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (lse - ll) + z_loss * torch.square(lse)
     return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1)
+
+
+def sharded_cross_entropy(logits, labels, sharder: Sharder, *,
+                          z_loss=1e-4):
+    """:func:`cross_entropy` of DTensor ``logits`` [B, S, ..., V] and
+    ``labels`` [B, S, ...] under a mesh, vocab-parallel: each rank keeps
+    its batch rows and its vocab slice (``Sharder.logits``' spec), the
+    log-sum-exp takes the max and the sum of exponentials over the model
+    axis, the label's logit is summed from the one rank whose slice holds
+    it, and the masked sums over the batch axes. No rank gathers the
+    vocab. With more than two dims of labels (audio's [B, S, C]) the mean
+    of the trailing dim's cross-entropies. A plain scalar tensor, equal
+    on every rank."""
+    v = sharder.model_axis if sharder._fits(logits.shape[-1]) else None
+    b = sharder.b
+    lg = sharder.local(logits, (b, *(None,) * (logits.ndim - 2), v))
+    lab = sharder.local(labels, (b, *(None,) * (labels.ndim - 1)))
+    lg = lg.to(torch.float32)
+    rows = lg.shape[-1]
+    lo = sharder.rank(v) * rows
+    mx = sharder.reduce(lg.detach().amax(dim=-1), (v,), "max")
+    se = sharder.reduce(torch.exp(lg - mx[..., None]).sum(dim=-1), (v,))
+    lse = mx + torch.log(se)
+    mask = lab >= 0
+    idx = lab - lo
+    ok = (idx >= 0) & (idx < rows)
+    pick = torch.gather(lg, -1, torch.where(ok, idx, 0)[..., None])[..., 0]
+    ll = sharder.reduce(torch.where(ok, pick, 0.0), (v,))
+    nll = ((lse - ll) + z_loss * torch.square(lse)) * mask
+    dims = (0, 1) if labels.ndim > 2 else tuple(range(labels.ndim))
+    batch = tuple(sharder.batch_axes)
+    num = sharder.reduce(torch.sum(nll, dim=dims), batch)
+    den = sharder.reduce(torch.sum(mask, dim=dims).to(torch.float32), batch)
+    ce = num / torch.clamp_min(den, 1)
+    return ce.mean() if labels.ndim > 2 else ce
 
 
 def mlp_params(d, f, kind, dtype, *, generator, device):

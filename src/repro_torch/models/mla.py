@@ -90,7 +90,9 @@ def mla_attention(x, p, cfg: ModelConfig, sharder: Sharder = NO_SHARD, *,
         v = matmul(c_kv, p["w_uv"]).reshape(B, S, H, dv)
         out, kr = _prefill_local(
             *(sharder.local(t, h_spec) for t in (q_nope, q_rope, k_nope, v)),
-            sharder.local(k_rope, r_spec), cfg, chunk=chunk)
+            sharder.local(k_rope, r_spec,
+                          (m,) if sharder._fits(H) else ()),
+            cfg, chunk=chunk)
         out = sharder.wrap(out, h_spec)
         new_cache = {"c": c_kv, "kr": sharder.wrap(kr, r_spec)}
     else:

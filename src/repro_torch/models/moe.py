@@ -8,8 +8,11 @@ the experts are sharded over the ``model`` axis (``ep`` shards of
 between ``Sharder.local`` and ``Sharder.wrap``: the reference's
 ``shard_map``), keeps the assignments that hit its own experts, and the
 partial outputs are summed over ``model`` in rank order (0, 1, ...,
-``ep - 1``: gathered, then added one at a time); the aux is averaged over
-every mesh axis. Without a mesh ``ep = 1``. The router
+``ep - 1``: gathered, then added one at a time); the aux is the whole
+batch's (:func:`_global_aux`), as without a mesh. Under autograd the
+boundary's replicated inputs take partial gradients
+(``Sharder.local``'s ``partial``), and the combine's gather and fixed
+order are differentiable as they stand. Without a mesh ``ep = 1``. The router
 runs in f32: softmax, top-k, gates renormalised over the k. The T * K
 assignments are sorted by local expert with a STABLE sort (as
 ``jnp.argsort``), the assignments of other ranks' experts last, the
@@ -125,10 +128,11 @@ def moe_local(x, router_w, w_in, w_gate, w_out, *, cfg: ModelConfig,
         out = out + weighted[take[:, j]]
 
     me = probs.mean(dim=0)                               # [E]
-    ce = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * K)
-    aux = E * torch.sum(me * ce)
-    return out.reshape(B, S, D).to(x.dtype), aux, {"idx": idx,
-                                                   "kept": sel}
+    hits = torch.bincount(flat_e, minlength=E).to(torch.float32)
+    aux = E * torch.sum(me * (hits / (T * K)))
+    return out.reshape(B, S, D).to(x.dtype), aux, {
+        "idx": idx, "kept": sel, "prob_sum": probs.sum(dim=0),
+        "hits": hits}
 
 
 def moe_ffn(x, p, cfg: ModelConfig, sharder: Sharder = NO_SHARD):
@@ -159,20 +163,47 @@ def _moe_sharded(x, p, cfg: ModelConfig, sharder: Sharder):
                          "(layout 'tp')")
     ep = sharder._msize()
     x_spec = (b, None, None)
-    w = [sharder.local(p[n], (m, None, None))
+    every = axis_names(sharder.mesh)
+    # gradients: each data rank routes its own tokens, each model rank
+    # its own experts, so a replicated input's is a partial sum there
+    rest = tuple(a for a in every if a != m)
+    w = [sharder.local(p[n], (m, None, None), rest)
          for n in ("w_in", "w_gate", "w_out")]
-    out, aux, _ = moe_local(sharder.local(x, x_spec),
-                            sharder.local(p["router"], (None, None)), *w,
-                            cfg=cfg, ep=ep, my=sharder.rank(m))
+    xl = sharder.local(x, x_spec, (m,))
+    out, _, routing = moe_local(xl, sharder.local(p["router"], (None, None),
+                                                  every),
+                                *w, cfg=cfg, ep=ep, my=sharder.rank(m))
     # the partial outputs, gathered over model and added in rank order
     parts = sharder.local(sharder.wrap(out[None], (m, b, None, None)),
                           (None, b, None, None))
     routed = parts[0]
     for i in range(1, ep):
         routed = routed + parts[i]
-    every = sharder.local(sharder.wrap(aux.reshape(1),
-                                       (axis_names(sharder.mesh),)), (None,))
-    return sharder.wrap(routed, x_spec), every.mean()
+    return sharder.wrap(routed, x_spec), _global_aux(routing, xl, cfg,
+                                                     sharder)
+
+
+def _global_aux(routing, xl, cfg: ModelConfig, sharder: Sharder):
+    """The load-balance aux of the whole batch from each rank's routing
+    of its tokens: the probabilities' and assignments' sums added over
+    the mesh, each rank's divided by the number of ranks that hold the
+    same tokens (a power of two: exact), so a token counts once and its
+    gradient reaches the router once. The one-device aux, where the
+    reference's sharded MoE averages its shards' auxes (ROADMAP C)."""
+    from repro_torch.launch.sharding import axis_names, mesh_shape
+    shape = mesh_shape(sharder.mesh)
+    reps = tokens = 1
+    for a in axis_names(sharder.mesh):
+        if a in sharder.batch_axes:
+            tokens *= shape[a]
+        else:
+            reps *= shape[a]
+    every = axis_names(sharder.mesh)
+    E, K = cfg.moe_experts, cfg.moe_topk
+    T = xl.shape[0] * xl.shape[1] * tokens
+    me = sharder.reduce(routing["prob_sum"] / reps, every) / T
+    hits = sharder.reduce(routing["hits"] / reps, every)
+    return E * torch.sum(me * (hits / (T * K)))
 
 
 def moe_ffn_dense_reference(x, p, cfg: ModelConfig):

@@ -63,7 +63,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, mla, moe, rwkv6
 from repro_torch.models.common import (NO_SHARD, ModelConfig, Sharder,
                                        _init, cross_entropy, matmul,
-                                       mlp_apply, mlp_params, rms_norm)
+                                       mlp_apply, mlp_params, rms_norm,
+                                       sharded_cross_entropy)
 
 FAMILIES = ("dense", "vlm", "audio", "moe", "rwkv", "hybrid")
 AUX_LOSS_W = 0.01
@@ -95,13 +96,15 @@ def _tf_layer_params(cfg: ModelConfig, *, use_moe: bool, generator,
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     there seeded with ``seed``. Raises if ``device`` is CUDA and there is
-    none."""
+    none. On ``"meta"`` the parameters have shapes and dtypes only (a
+    template for ``checkpoint.restore``)."""
     _check_family(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' asked for, but torch sees no CUDA "
                            "device; pass device='cpu' to run on the CPU")
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = (None if device.type == "meta" else
+                 torch.Generator(device=device).manual_seed(seed))
     kw = dict(generator=generator, device=device)
     d = cfg.d_model
     params: dict[str, Any] = {
@@ -234,7 +237,9 @@ def _lookup(tokens, table, sharder: Sharder):
 
 
 def lm_logits(params, x, cfg: ModelConfig, sharder: Sharder = NO_SHARD):
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    # the sequence gathered first: DTensor (torch 2.11) cannot flatten a
+    # sequence-sharded [B, S, D] into the head's product
+    x = sharder.act_full(rms_norm(x, params["final_ln"], cfg.norm_eps))
     head = params["lm_head"]
     if cfg.family == "audio":
         dt = torch.promote_types(x.dtype, head.dtype)
@@ -310,7 +315,7 @@ def _forward_tf(params, x, cfg: ModelConfig, sharder: Sharder, *, mode,
         for i, p_l in enumerate(layers):
             if remat:
                 x, a = checkpoint(_train_block, x, p_l, cfg, use_moe,
-                                  use_reentrant=False)
+                                  sharder, use_reentrant=False)
             else:
                 x, kv, a = _tf_block(x, p_l, cfg, sharder, use_moe=use_moe,
                                      pos=pos if decode else None,
@@ -422,8 +427,9 @@ def _forward_hybrid(params, x, cfg: ModelConfig, *, mode, caches, pos):
     return x, {"mamba": _stacked(new_m), "attn": _stacked(new_a)}
 
 
-def _train_block(x, p, cfg: ModelConfig, use_moe: bool):
-    x, _, aux = _tf_block(x, p, cfg, use_moe=use_moe)
+def _train_block(x, p, cfg: ModelConfig, use_moe: bool,
+                 sharder: Sharder = NO_SHARD):
+    x, _, aux = _tf_block(x, p, cfg, sharder, use_moe=use_moe)
     return x, aux
 
 
@@ -461,12 +467,18 @@ def pad_caches(caches, to_len: int):
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, sharder: Sharder = NO_SHARD):
     """``(ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux})`` of the train
     forward, ``batch`` holding ``tokens`` and ``labels`` [B, S] (audio:
     [B, S, C], ce the mean of the C codebooks' cross-entropies; vlm also
-    ``patch_embeds``)."""
-    logits, aux, _ = forward(params, batch, cfg, mode="train")
+    ``patch_embeds``). Under a mesh the parameters and batch are
+    DTensors, the cross-entropy is vocab-parallel over the sharder's
+    logits (``common.sharded_cross_entropy``) and the results are plain
+    scalar tensors, equal on every rank."""
+    logits, aux, _ = forward(params, batch, cfg, sharder, mode="train")
+    if sharder.enabled:
+        ce = sharded_cross_entropy(logits, batch["labels"], sharder)
+        return ce + AUX_LOSS_W * aux, {"ce": ce, "aux": aux}
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     if cfg.family == "audio":
         ce = cross_entropy(logits[:, :, 0], labels[..., 0])

@@ -14,6 +14,13 @@ Parameters, gradients and moments are nested dicts and lists of tensors
 them. The clip's scale is applied leaf by leaf inside the update, so that
 no f32 copy of every gradient is held at once; the values are the
 reference's.
+
+Under a device mesh the parameters, gradients and moments are DTensors,
+each gradient and moment placed as its parameter
+(``train.make_train_step`` and :func:`init` see to it): the update runs
+in place on each rank's local shards, and :func:`global_norm` is the
+norm over the whole mesh (each rank's sums of squares, a shard counted
+once, added by one all-reduce).
 """
 from __future__ import annotations
 
@@ -98,16 +105,53 @@ def init(params, cfg: AdamWConfig):
     dt = _DT[cfg.state_dtype]
 
     def zeros(_, p):
+        if _is_dtensor(p):
+            return torch.zeros_like(p, dtype=dt)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": 0}
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    """A DTensor's local shard (a tensor stays itself)."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def global_norm(tree):
     """sqrt of the sum over leaves of their f32 squares (an f32 0-d
-    tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for _, x in leaves(tree)))
+    tensor). With DTensor leaves: each rank adds the squares of its local
+    shards, each placement's sum divided by its number of replicas (a
+    power of two, so exactly), and one all-reduce over the mesh adds the
+    ranks' sums; the result is a plain tensor, equal on every rank."""
+    xs = [x for _, x in leaves(tree)]
+    if not any(_is_dtensor(x) for x in xs):
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in xs))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    groups: dict = {}
+    mesh = None
+    for x in xs:
+        if not _is_dtensor(x):
+            raise TypeError("global_norm: DTensor and plain leaves mixed")
+        mesh = x.device_mesh
+        groups.setdefault(tuple(x.placements), []).append(torch.sum(
+            torch.square(x.to_local().to(torch.float32))))
+    total = None
+    for pl, sums in groups.items():
+        reps = 1
+        for i, q in enumerate(pl):
+            if isinstance(q, Replicate):
+                reps *= mesh.size(i)
+        part = sum(sums) / reps
+        total = part if total is None else total + part
+    every = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(every.full_tensor())
 
 
 def clip_by_global_norm(grads, max_norm):
@@ -139,6 +183,12 @@ def apply(grads, state, params, cfg: AdamWConfig):
     dt = _DT[cfg.state_dtype]
 
     def upd(_, p, g, m, v):
+        if _is_dtensor(p):
+            if not (tuple(g.placements) == tuple(m.placements)
+                    == tuple(v.placements) == tuple(p.placements)):
+                raise ValueError("adamw: a gradient or moment is placed "
+                                 "unlike its parameter")
+            p, g, m, v = (_local(t) for t in (p, g, m, v))
         g = g.to(torch.float32) * scale
         m32 = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * g * g

@@ -31,6 +31,18 @@ keeps pytrees whose stacked leaves are (L, nb, block, block)
 (``repro_torch.convert.opt_state_from_reference`` carries them across).
 :func:`apply` updates the statistics, factors, AdamW moments and
 parameters in place (see ``adamw``) and returns them.
+
+Under a device mesh (``init(params, cfg, mesh)`` on DTensor parameters)
+layer ``i``'s statistics and factors live on the ranks that
+``launch.sharding.stats_owners`` names (the ``data`` coordinate ``i // (L
+/ data)``, whole, on every rank of it), and are ``meta`` tensors (shape
+only) elsewhere. Each step each eligible gradient goes whole to its
+owners alone (``launch.hostwire.gather_to``, in path order on every
+rank); the owners update their statistics, refactor their own blocks
+as ONE batched factor, and whiten their matrices (the schedule above,
+per rank); each whitened gradient goes back to its parameter's
+placement as a sum over ``data`` of the owners' values and the others'
+zeros (exact), and AdamW takes them as it takes any placed gradient.
 """
 from __future__ import annotations
 
@@ -90,16 +102,38 @@ def _to_blocks(g, block):
     return g.reshape(*lead, din // block, block, dout)
 
 
-def init(params, cfg: TreeNewtonConfig):
+def _held(owner, mesh) -> bool:
+    """Whether this rank holds statistics placed by ``owner``."""
+    from repro_torch.launch.sharding import Owned
+    if isinstance(owner, Owned):
+        return owner.holds(mesh)
+    if any(e is not None for e in owner):
+        raise NotImplementedError("statistics sharded over data outside "
+                                  "the layers (no family under a mesh has "
+                                  "them)")
+    return True
+
+
+def init(params, cfg: TreeNewtonConfig, mesh=None):
     """AdamW's state, and identity statistics and factors (chol(I) = I)
-    for every eligible matrix; count 0."""
+    for every eligible matrix; count 0. With ``mesh`` (DTensor
+    parameters) a rank keeps only the statistics it holds (module
+    docstring); the others are ``meta`` tensors of their shape."""
+    from repro_torch.launch.sharding import stats_owners
+    shapes = {p: (*l.shape[:-2], l.shape[-2] // cfg.block, cfg.block,
+                  cfg.block)
+              for p, l in adamw.leaves(params) if _eligible(p, l, cfg)}
+    leaf = dict(adamw.leaves(params))
+    owners = stats_owners(shapes, mesh) if mesh is not None else {}
     stats = {}
-    for path, leaf in adamw.leaves(params):
-        if _eligible(path, leaf, cfg):
-            nb = leaf.shape[-2] // cfg.block
-            eye = torch.eye(cfg.block, dtype=torch.float32, device=leaf.device)
-            stats[path] = eye.expand(*leaf.shape[:-2], nb, cfg.block,
-                                     cfg.block).clone()
+    for path, shape in shapes.items():
+        if mesh is not None and not _held(owners[path], mesh):
+            stats[path] = torch.empty(shape, dtype=torch.float32,
+                                      device="meta")
+            continue
+        eye = torch.eye(cfg.block, dtype=torch.float32,
+                        device=leaf[path].device)
+        stats[path] = eye.expand(shape).clone()
     return {"adam": adamw.init(params, cfg.adam), "stats": stats,
             "factors": {p: s.clone() for p, s in stats.items()}, "count": 0}
 
@@ -178,6 +212,35 @@ def _whiten_group(items, cfg: TreeNewtonConfig):
     return out
 
 
+def _owner_ranks(owner, g) -> list:
+    """The global ranks that hold statistics placed by ``owner``, on the
+    mesh of the gradient ``g``: an ``Owned`` leaf's holders, else every
+    rank (``_held`` refuses the rest)."""
+    from repro_torch.launch.sharding import Owned
+    mesh = g.device_mesh
+    if isinstance(owner, Owned):
+        return owner.ranks(mesh)
+    return mesh.mesh.flatten().tolist()
+
+
+def _placed_back(x, g, owner):
+    """A whitened whole gradient ``x`` as a DTensor placed like the
+    gradient ``g``. ``owner`` is its statistics' placement: an ``Owned``
+    leaf's holders add their ``x`` over the owning axis to the other
+    ranks' zeros (``x`` None there); a replicated one's ``x`` is the same
+    on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.launch.sharding import Owned, axis_names
+    mesh = g.device_mesh
+    if x is None:
+        x = torch.zeros(g.shape, dtype=torch.float32,
+                        device=g.to_local().device)
+    pl = [Partial() if isinstance(owner, Owned) and a == owner.axis
+          else Replicate() for a in axis_names(mesh)]
+    d = DTensor.from_local(x, mesh, pl, run_check=False)
+    return d.redistribute(mesh, g.placements)
+
+
 def whiten_groups(params, cfg: TreeNewtonConfig) -> dict:
     """The whitening's batches: ``{dout: [path, ...]}`` of the eligible
     matrices, in parameter order; each group is solved as one batch (the
@@ -197,24 +260,51 @@ def apply(grads, state, params, cfg: TreeNewtonConfig):
     place."""
     count = state["count"] + 1
     gleaf = dict(adamw.leaves(grads))
-    stats = state["stats"]
+    # a replicated placement (a restore's) is the whole tensor
+    stats = {p: adamw._local(a) for p, a in state["stats"].items()}
+    state["factors"] = {p: adamw._local(f)
+                        for p, f in state["factors"].items()}
+    held = [p for p, a in stats.items() if a.device.type != "meta"]
+    placed = adamw._is_dtensor(next(iter(gleaf.values())))
+    owners = {}
+    if placed and stats:
+        from repro_torch.launch import hostwire
+        from repro_torch.launch.sharding import stats_owners
+        owners = stats_owners({p: a.shape for p, a in stats.items()},
+                              gleaf[next(iter(stats))].device_mesh)
+    # under a mesh the owners work on whole gradients: each eligible one
+    # goes whole to its owners alone, in path order on every rank
+    whole = {}
+    for p in stats:
+        if not placed:
+            whole[p] = gleaf[p]
+            continue
+        g = hostwire.gather_to(gleaf[p], _owner_ranks(owners[p], gleaf[p]))
+        if p in held:
+            whole[p] = g.to(gleaf[p].to_local().device)
     if count % cfg.stats_every == 0:
-        stats = {p: _update_stats(gleaf[p], a, cfg) for p, a in stats.items()}
+        stats = {p: _update_stats(whole[p], a, cfg) if p in whole else a
+                 for p, a in stats.items()}
     factors = state["factors"]
-    if count % cfg.factor_every == 0 and stats:
-        paths = list(stats)
+    if count % cfg.factor_every == 0 and held:
         flat = _refactor(torch.cat([stats[p].reshape(-1, cfg.block, cfg.block)
-                                    for p in paths]), cfg)
-        factors, off = {}, 0
-        for p in paths:
+                                    for p in held]), cfg)
+        factors, off = dict(factors), 0
+        for p in held:
             k = stats[p].numel() // (cfg.block * cfg.block)
             factors[p] = flat[off:off + k].reshape(stats[p].shape)
             off += k
     white = {}
     for paths in whiten_groups(grads, cfg).values():
-        outs = _whiten_group([(gleaf[p], factors[p], stats[p])
+        paths = [p for p in paths if p in whole]
+        if not paths:
+            continue
+        outs = _whiten_group([(whole[p], factors[p], stats[p])
                               for p in paths], cfg)
         white.update(zip(paths, outs))
+    if placed and stats:
+        white = {p: _placed_back(white.get(p), gleaf[p], owners[p])
+                 for p in stats}
     pgrads = adamw.tree_map(lambda path, g: white.get(path, g), grads)
     params, adam_state, metrics = adamw.apply(pgrads, state["adam"], params,
                                               cfg.adam)

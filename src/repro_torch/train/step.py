@@ -12,6 +12,14 @@ the microbatches' gradients are summed in f32 in microbatch order, as the
 reference's ``lax.scan`` sums them, then scaled by ``1 / accum``. The
 optimizer updates the parameters and its state in place (``optim``), and
 ``state["step"]`` is a host integer.
+
+Under a device mesh (``make_train_step(cfg, tcfg, sharder)``, the
+reference's signature) the state is placed (``convert.place_train_state``)
+and the batch too (``convert.place_batch``, with ``accum=`` for
+microbatches): the parameters are DTensors, ``loss_fn`` runs under the
+sharder, and each gradient is brought to its parameter's placement (a
+gradient that DTensor left Partial is reduced) before the optimizer.
+The loss and metrics are plain tensors, equal on every rank.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import NO_SHARD, ModelConfig, Sharder
 from repro_torch.optim import adamw, kfac
 
 
@@ -35,10 +43,12 @@ class TrainConfig:
     accum: int = 1
 
 
-def init_opt(params, tcfg: TrainConfig):
-    """The optimizer state of ``tcfg.optimizer`` for ``params``."""
+def init_opt(params, tcfg: TrainConfig, mesh=None):
+    """The optimizer state of ``tcfg.optimizer`` for ``params`` (DTensors
+    on ``mesh``, when given: the moments placed as their parameters,
+    TreeNewton's statistics on the ranks that own them)."""
     if tcfg.optimizer == "tree_newton":
-        return kfac.init(params, tcfg.tree_newton)
+        return kfac.init(params, tcfg.tree_newton, mesh)
     if tcfg.optimizer != "adamw":
         raise ValueError(f"optimizer {tcfg.optimizer!r}")
     return adamw.init(params, tcfg.adam)
@@ -52,35 +62,58 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, *, seed: int = 0,
     return {"params": params, "opt": init_opt(params, tcfg), "step": 0}
 
 
-def _value_and_grad(params, batch, cfg: ModelConfig):
+def _value_and_grad(params, batch, cfg: ModelConfig,
+                    sharder: Sharder = NO_SHARD):
     """``(loss, metrics, grads)`` of ``loss_fn`` at ``params``; the
-    gradients in the parameters' dtypes, shaped as ``params``."""
+    gradients in the parameters' dtypes, shaped (and, under a mesh,
+    placed) as ``params``."""
     flat = [p for _, p in adamw.leaves(params)]
     for p in flat:
         p.requires_grad_(True)
     try:
         with torch.enable_grad():
-            loss, m = T.loss_fn(params, batch, cfg)
+            loss, m = T.loss_fn(params, batch, cfg, sharder)
             gs = torch.autograd.grad(loss, flat)
     finally:
         for p in flat:
             p.requires_grad_(False)
+    if sharder.enabled:
+        gs = [g if tuple(g.placements) == tuple(p.placements)
+              else g.redistribute(p.device_mesh, p.placements)
+              for g, p in zip(gs, flat)]
     it = iter(gs)
     grads = adamw.tree_map(lambda _, p: next(it), params)
     return loss.detach(), {k: v.detach() for k, v in m.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def _micro(v, i):
+    """Microbatch ``i`` of a batch leaf [accum, B/accum, ...]; a placed
+    leaf (``accum`` replicated, the batch dim sharded) stays placed."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(v, DTensor):
+        return v[i]
+    pl = [Shard(q.dim - 1) if isinstance(q, Shard) else q
+          for q in v.placements]
+    return DTensor.from_local(v.to_local()[i], v.device_mesh, pl,
+                              run_check=False)
+
+
+def _f32_zeros(p):
+    if adamw._is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                    sharder: Sharder = NO_SHARD):
     def grads_of(params, batch):
         if tcfg.accum == 1:
-            return _value_and_grad(params, batch, cfg)
-        acc = adamw.tree_map(
-            lambda _, p: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device), params)
+            return _value_and_grad(params, batch, cfg, sharder)
+        acc = adamw.tree_map(lambda _, p: _f32_zeros(p), params)
         loss_sum = None
         for i in range(tcfg.accum):
-            mb = {k: v[i] for k, v in batch.items()}
-            loss, m, g = _value_and_grad(params, mb, cfg)
+            mb = {k: _micro(v, i) for k, v in batch.items()}
+            loss, m, g = _value_and_grad(params, mb, cfg, sharder)
             adamw.tree_map(lambda _, a, b: a.add_(b.to(torch.float32)),
                            acc, g)
             loss_sum = loss if loss_sum is None else loss_sum + loss

@@ -13,7 +13,9 @@
     each leaf's largest entry (tests/test_torch_train.py's bound);
   * SIGTERM to a driver process leaves a checkpoint of the step it
     stopped at, and --resume continues from it;
-  * a sharded mesh and a CUDA run without a card raise.
+  * ``--mesh host(2x2)`` trains on 4 CPU ranks as the one-process
+    driver does (losses within 1e-4); a production mesh without its ranks
+    and a CUDA run without a card raise.
 """
 import os
 import shutil
@@ -191,8 +193,17 @@ def test_sigterm_saves_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("mesh", ["host(2x2)", "16x16"])
 def test_sharded_mesh_raises(tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="A3"):
-        _run(tmp_path, "--mesh", mesh, "--steps", "1")
+    """``host(2x2)`` trains 2 smoke steps on 4 CPU ranks, its losses within
+    1e-4 of the one-process driver's (tests/test_moe_sharded.py:99); a
+    production mesh without its 256 ranks raises, naming the size."""
+    if mesh == "16x16":
+        with pytest.raises(ValueError, match="256 ranks"):
+            _run(tmp_path, "--mesh", mesh, "--steps", "1")
+        return
+    got = _run(tmp_path / "mesh", "--mesh", mesh, "--steps", "2")
+    want = _run(tmp_path / "one", "--steps", "2")
+    assert got["start"] == 0 and got["state"]["step"] == 2
+    assert np.abs(np.subtract(got["losses"], want["losses"])).max() < 1e-4
 
 
 def test_cuda_without_a_card_raises(tmp_path, monkeypatch):
